@@ -1,0 +1,1 @@
+"""Attention ops: the hand-written CUDA kernels and their plain versions."""

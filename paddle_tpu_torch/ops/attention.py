@@ -1,0 +1,40 @@
+"""Plain attention: softmax(QK^T)V with a general mask.
+
+Port of ``paddle_tpu/ops/attention.py`` (``flash_attention_xla``): the path
+``nn.functional.scaled_dot_product_attention`` takes below the flash
+kernel's shape gate (sequences shorter than 128, e.g. a decode row over a
+contiguous cache) and for masks that are not a [B, 1, 1, Sk] key-padding
+row. It materialises the scores, which is cheap at those shapes. Layout
+[B, S, H, D].
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+__all__ = ["attention"]
+
+
+def attention(q, k, v, mask: Optional[torch.Tensor] = None,
+              causal: bool = False, scale: Optional[float] = None):
+    """Causal rows attend to keys at or before them (aligned to the end
+    when Sk > Sq); a bool mask keeps True entries; a float mask is added to
+    the scores (broadcast to [B, H, Sq, Sk]). Softmax in f32."""
+    d = q.shape[-1]
+    s = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * s
+    low = torch.finfo(torch.float32).min
+    if causal:
+        qlen, klen = scores.shape[-2], scores.shape[-1]
+        keep = torch.ones(qlen, klen, dtype=torch.bool,
+                          device=q.device).tril(klen - qlen)
+        scores = scores.masked_fill(~keep, low)
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            scores = scores.masked_fill(~mask, low)
+        else:
+            scores = scores + mask.float()
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)

@@ -1,0 +1,314 @@
+"""Paged KV-cache block manager (tentpole of the serving subsystem).
+
+The per-layer KV cache is one global pool of fixed-size token blocks
+([num_blocks, block_size, heads, head_dim], models/gpt.py init_kv_pools)
+instead of a monolithic [B, total] slab per request — the PagedAttention
+idea: a sequence owns a BLOCK TABLE of pool indices, blocks are allocated
+when a request starts (prefill) or crosses a block boundary (decode) and
+returned when it finishes or is preempted. Fragmentation is bounded to
+one partial block per sequence, and the capacity accountant below is what
+the scheduler consults to admit or preempt.
+
+Block 0 is the reserved NULL block: idle batch slots and the padded tail
+of every block table point at it, so the slot-batched decode step
+(serving/engine.py) always reads/writes valid pool rows at one fixed shape
+— it is never read as real context, and writes to it are discarded state.
+
+Prefix sharing (the next serving lever; the engine does not use it yet):
+blocks are
+REFCOUNTED, and every FULL prompt block can be registered in a
+content-hash prefix index keyed by the chained hash of its token ids
+(hash(parent_hash, block tokens) — position-sensitive, so identical
+token runs at different offsets never collide). A new request whose
+prompt prefix matches indexed blocks maps its block table onto them
+(``acquire``) instead of recomputing prefill; the first write into a
+block held by more than one owner forks it first (``fork`` — the
+copy-on-write discipline). Blocks whose refcount drops to zero while
+registered are RETAINED in an LRU cached set — still matchable, evicted
+only under allocation pressure — so repeated-system-prompt traffic keeps
+its prefix warm across request lifetimes.
+"""
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict, deque
+from typing import Dict, List, Sequence, Set
+
+import numpy as np
+
+__all__ = ["NULL_BLOCK", "BlockError", "KVBlockManager", "prefix_hashes"]
+
+NULL_BLOCK = 0
+
+
+class BlockError(RuntimeError):
+    """Raised on pool exhaustion or on alloc/free contract violations."""
+
+
+def prefix_hashes(tokens, block_size: int) -> List[int]:
+    """Chained content hashes of the FULL blocks of a token sequence:
+    hashes[i] covers tokens[0 : (i+1)*block_size] (each block's hash
+    mixes in its predecessor's, so a match at block i implies the whole
+    prefix matches). Partial tail blocks get no hash — they are mutable
+    until the sequence crosses the boundary. Deterministic across
+    processes (blake2b over the int32 bytes, not Python hash())."""
+    toks = np.asarray(tokens, np.int32).reshape(-1)
+    out: List[int] = []
+    prev = b""
+    for i in range(toks.size // int(block_size)):
+        h = hashlib.blake2b(digest_size=16)
+        h.update(prev)
+        h.update(toks[i * block_size:(i + 1) * block_size].tobytes())
+        d = h.digest()
+        out.append(int.from_bytes(d, "little"))
+        prev = d
+    return out
+
+
+class KVBlockManager:
+    """Refcounted free-list allocator + capacity accountant + prefix index
+    over the block pool.
+
+    Allocation order is deterministic (FIFO reuse of freed ids, LRU
+    eviction of cached ids), which the scheduler relies on for
+    reproducible preemption tests.
+    """
+
+    def __init__(self, num_blocks: int, block_size: int,
+                 prefix_cache: bool = False):
+        if num_blocks < 2:
+            raise ValueError("num_blocks must be >= 2 (block 0 is reserved)")
+        if block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        # retain refcount-0 registered blocks for future prefix matches
+        self.prefix_cache = bool(prefix_cache)
+        self._free = deque(range(1, self.num_blocks))
+        self._ref: Dict[int, int] = {}          # allocated id -> refcount
+        self._owners: Dict[int, Set] = {}       # allocated id -> owner tags
+        self._by_owner: Dict[object, List[int]] = {}  # owner -> its blocks
+        self._hash_of: Dict[int, int] = {}      # registered block -> hash
+        self._index: Dict[int, int] = {}        # chain hash -> block id
+        self._cached: "OrderedDict[int, int]" = OrderedDict()  # id -> hash
+
+    # -- accounting ---------------------------------------------------------
+    @property
+    def usable_blocks(self) -> int:
+        """Pool capacity excluding the reserved null block."""
+        return self.num_blocks - 1
+
+    @property
+    def num_free(self) -> int:
+        """Allocatable blocks: truly free plus reclaimable cached ones."""
+        return len(self._free) + len(self._cached)
+
+    @property
+    def num_allocated(self) -> int:
+        return len(self._ref)
+
+    @property
+    def num_cached(self) -> int:
+        """Refcount-0 blocks retained for prefix reuse (reclaimable)."""
+        return len(self._cached)
+
+    def utilization(self) -> float:
+        return self.num_allocated / self.usable_blocks
+
+    def blocks_for_tokens(self, num_tokens: int) -> int:
+        return -(-int(num_tokens) // self.block_size)
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= self.num_free
+
+    def refcount(self, block: int) -> int:
+        return self._ref.get(block, 0)
+
+    # -- alloc/free ---------------------------------------------------------
+    def _take_one(self) -> int:
+        """Pop a block to hand out: the free list first, else evict the
+        least-recently-cached block (its prefix entry is dropped)."""
+        if self._free:
+            return self._free.popleft()
+        b, h = self._cached.popitem(last=False)  # LRU eviction
+        self._index.pop(h, None)
+        self._hash_of.pop(b, None)
+        return b
+
+    def _track(self, b: int, owner) -> None:
+        self._ref[b] = self._ref.get(b, 0) + 1
+        if owner is not None:
+            self._owners.setdefault(b, set()).add(owner)
+            self._by_owner.setdefault(owner, []).append(b)
+        else:
+            self._owners.setdefault(b, set())
+
+    def alloc(self, n: int, owner=None) -> List[int]:
+        if n < 0:
+            raise ValueError(f"alloc({n})")
+        if n > self.num_free:
+            raise BlockError(
+                f"out of KV blocks: want {n}, {self.num_free} free "
+                f"of {self.usable_blocks}")
+        out = [self._take_one() for _ in range(n)]
+        for b in out:
+            self._track(b, owner)
+        return out
+
+    def acquire(self, blocks: Sequence[int], owner) -> None:
+        """Incref already-allocated (or cached) blocks for a new owner —
+        the prefix-sharing mapping: the owner's block table points at
+        them without any compute. Cached blocks are revived."""
+        if owner is None:
+            raise BlockError("acquire requires an owner tag")
+        for b in blocks:
+            if b in self._cached:
+                h = self._cached.pop(b)  # revive: back to refcounted life
+                self._hash_of[b] = h     # (entry kept; hash unchanged)
+            elif b not in self._ref:
+                raise BlockError(f"acquire of unallocated block {b}")
+            if owner in self._owners.get(b, ()):
+                raise BlockError(f"owner {owner!r} already holds block {b}")
+            self._track(b, owner)
+
+    def free(self, blocks: Sequence[int], owner=None) -> None:
+        """Decrement each block's refcount for `owner`; a block reaching
+        zero returns to the free list — unless it is registered in the
+        prefix index and caching is on, in which case it parks in the
+        cached LRU (still matchable, reclaimed under pressure). With
+        owner=None only sole-owner blocks may be freed (legacy path)."""
+        for b in blocks:
+            if b == NULL_BLOCK:
+                raise BlockError("free of the reserved null block")
+            if b not in self._ref:
+                raise BlockError(f"double free of block {b}")
+            owners = self._owners.get(b, set())
+            if owner is not None:
+                if owner not in owners:
+                    raise BlockError(
+                        f"double free of block {b} by owner {owner!r}")
+                owners.discard(owner)
+                self._by_owner[owner].remove(b)
+                if not self._by_owner[owner]:
+                    del self._by_owner[owner]
+            else:
+                if self._ref[b] > 1:
+                    raise BlockError(
+                        f"free of shared block {b} requires an owner")
+                for o in owners:
+                    self._by_owner[o].remove(b)
+                    if not self._by_owner[o]:
+                        del self._by_owner[o]
+                owners.clear()
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                del self._ref[b]
+                self._owners.pop(b, None)
+                h = self._hash_of.get(b)
+                if h is not None and self.prefix_cache:
+                    self._cached[b] = h      # park, most-recently-used end
+                else:
+                    if h is not None:
+                        self._index.pop(h, None)
+                        del self._hash_of[b]
+                    self._free.append(b)
+
+    def fork(self, block: int, owner) -> int:
+        """Copy-on-write bookkeeping: give `owner` a private block in
+        place of shared `block` — allocates a fresh id (returned),
+        decrefs `block` for `owner`. The CALLER copies the pool rows
+        device-side and patches its block table."""
+        if owner not in self._owners.get(block, ()):
+            raise BlockError(f"fork of block {block} not held by {owner!r}")
+        new = self.alloc(1, owner=owner)[0]
+        self.free([block], owner=owner)
+        return new
+
+    def owner_of(self, block: int):
+        """Sole owner of an unshared block (None for shared/untracked)."""
+        owners = self._owners.get(block)
+        if owners and len(owners) == 1:
+            return next(iter(owners))
+        return None
+
+    def blocks_of(self, owner) -> List[int]:
+        """Block ids held by `owner`, in acquisition order. O(own blocks)
+        via the per-owner index (the old implementation scanned the whole
+        pool per call — per preemption and per snapshot)."""
+        return list(self._by_owner.get(owner, ()))
+
+    # -- prefix index -------------------------------------------------------
+    def register_prefix(self, hashes: Sequence[int],
+                        blocks: Sequence[int]) -> int:
+        """Map chain hashes onto the (full, immutable) blocks that hold
+        their KV, making them matchable by future prompts. First
+        registration wins — a hash already indexed keeps its block.
+        Returns how many new entries were added."""
+        added = 0
+        for h, b in zip(hashes, blocks):
+            if h in self._index:
+                continue
+            if b not in self._ref and b not in self._cached:
+                raise BlockError(f"register of unallocated block {b}")
+            if b in self._hash_of:
+                continue  # block already carries a (different) prefix
+            self._index[h] = b
+            self._hash_of[b] = h
+            added += 1
+        return added
+
+    def match_prefix(self, hashes: Sequence[int]) -> List[int]:
+        """Longest indexed prefix: block ids for a leading run of
+        `hashes`, stopping at the first miss. Read-only — call
+        ``acquire`` to map them into a block table."""
+        out: List[int] = []
+        for h in hashes:
+            b = self._index.get(h)
+            if b is None:
+                break
+            out.append(b)
+        return out
+
+    def assert_consistent(self) -> None:
+        """Invariant check used by tests: every usable block is exactly
+        one of free/allocated/cached; refcounts match owner sets; the
+        per-owner index mirrors the owner sets; prefix-index entries
+        point at live (allocated or cached) registered blocks."""
+        free = list(self._free)
+        if len(set(free)) != len(free):
+            raise BlockError("duplicate ids on the free list")
+        alloc, cached = set(self._ref), set(self._cached)
+        if set(free) & alloc or set(free) & cached or alloc & cached:
+            raise BlockError("block in more than one of free/allocated/cached")
+        if len(free) + len(alloc) + len(cached) != self.usable_blocks:
+            raise BlockError(
+                f"leak: {len(free)} free + {len(alloc)} allocated + "
+                f"{len(cached)} cached != {self.usable_blocks} usable")
+        for b, r in self._ref.items():
+            owners = self._owners.get(b, set())
+            if r < 1:
+                raise BlockError(f"allocated block {b} with refcount {r}")
+            if owners and r != len(owners):
+                raise BlockError(
+                    f"block {b}: refcount {r} != {len(owners)} owners")
+        derived: Dict[object, List[int]] = {}
+        for b, owners in self._owners.items():
+            for o in owners:
+                derived.setdefault(o, []).append(b)
+        for o, blocks in self._by_owner.items():
+            if sorted(blocks, key=repr) != sorted(derived.get(o, []),
+                                                  key=repr):
+                raise BlockError(f"per-owner index stale for {o!r}")
+        if set(derived) != set(self._by_owner):
+            raise BlockError("per-owner index has stale owners")
+        for h, b in self._index.items():
+            if self._hash_of.get(b) != h:
+                raise BlockError(f"prefix index entry {h} -> {b} unmirrored")
+            if b not in self._ref and b not in self._cached:
+                raise BlockError(f"prefix index points at dead block {b}")
+        for b, h in self._hash_of.items():
+            if self._index.get(h) != b:
+                raise BlockError(f"registered block {b} missing from index")
+        for b, h in self._cached.items():
+            if self._hash_of.get(b) != h:
+                raise BlockError(f"cached block {b} hash mismatch")

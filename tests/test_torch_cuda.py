@@ -1,0 +1,103 @@
+"""paddle_tpu_torch's CUDA kernels against their plain versions, on a card.
+
+Every test here needs an NVIDIA card (the kernels have no CPU mode) and
+skips without one. The file imports only torch, numpy and the port, so it
+also runs where JAX is not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerances: f32 inputs differ from the plain version only in summation
+order (1e-5); bf16 outputs may differ by one bf16 rounding step (2^-6 for
+|x| < 4, and attention outputs are convex sums of N(0, 1) values); lse is
+f32 on both sides (1e-4).
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.ops import paged_attention as tpa
+
+torch.set_num_threads(1)
+
+TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 1.6e-2)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", TOLS)
+@pytest.mark.parametrize("S,causal,padded", [(200, True, True),
+                                             (256, False, False),
+                                             (128, True, False)])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_kernel_matches_plain(cuda_device, dtype, atol, S, causal,
+                                    padded, D):
+    rng = np.random.default_rng(S + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, 4, D))
+                                .astype(np.float32)).to(cuda_device, dtype)
+               for _ in range(3))
+    kvb = None
+    if padded:  # batch 0 masks its last 40 keys, batch 1 every key
+        b = np.zeros((2, S), np.float32)
+        b[0, S - 40:] = -1e9
+        b[1] = -np.inf
+        kvb = torch.from_numpy(b).to(cuda_device)
+    before = tfa.KERNEL.launches
+    out, lse = tfa.flash_attention_fwd(q, k, v, kvb, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.KERNEL.launches == before + 1
+    want_out, want_lse = tfa.flash_attention_plain(q, k, v, kvb, causal)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    if padded:
+        assert bool((out[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", TOLS)
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("D,BS", [(32, 4), (64, 16), (128, 32)])
+def test_paged_kernel_matches_plain(cuda_device, dtype, atol, s, D, BS):
+    rng = np.random.default_rng(s + D)
+    B, H, NB, M = 4, 4, 40, 8
+    q = rng.standard_normal((B, s, H, D)).astype(np.float32)
+    kp = rng.standard_normal((NB, BS, H, D)).astype(np.float32)
+    vp = rng.standard_normal((NB, BS, H, D)).astype(np.float32)
+    table = rng.integers(1, NB, (B, M)).astype(np.int32)
+    table[2, 5:] = 0                           # null-block tail
+    start = np.array([M * BS - 2, 3 * BS + 1, 2 * BS, 0])  # row 0 overruns
+    pos = (start[:, None] + np.arange(s)[None, :]).astype(np.int32)
+    pos[3, -1] = -1                            # sees nothing: zeros
+    args = [torch.from_numpy(a).to(cuda_device, dtype) for a in (q, kp, vp)]
+    table_t = torch.from_numpy(table).to(cuda_device)
+    pos_t = torch.from_numpy(pos).to(cuda_device)
+    before = tpa.KERNEL.launches
+    got = tpa.paged_attention(*args, table_t, pos_t, block_size=BS)
+    torch.cuda.synchronize()
+    assert tpa.KERNEL.launches == before + 1
+    want = tpa.paged_attention_plain(*args, table_t, pos_t, block_size=BS)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert bool((got[3, -1] == 0).all())
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(1, 128, 2, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention_fwd(q, q, q, causal=True)
+    q = torch.zeros(1, 128, 2, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        tfa.flash_attention_fwd(q, q, q, causal=True)
+    q = torch.zeros(2, 1, 2, 64, device=cuda_device)
+    pool = torch.zeros(4, 4, 2, 64, device=cuda_device)
+    table = torch.zeros(2, 3, dtype=torch.int64, device=cuda_device)
+    pos = torch.zeros(2, 1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        tpa.paged_attention(q, pool, pool, table, pos, block_size=4)
