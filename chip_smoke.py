@@ -6,18 +6,31 @@ Run from the root of the repository, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-  1. build   — compile every CUDA kernel of the serving path with nvcc, all
-               sources at once, and print the build seconds;
+  1. build   — compile every CUDA kernel (flash forward, flash backward,
+               paged attention) with nvcc, all sources at once, and print
+               the build seconds;
   2. kernels — hold each kernel against its plain PyTorch version on the
-               card at the serving path's shapes; print max-abs error,
-               tolerance, kernel ms, plain ms, the bound and the time of
-               PyTorch's own attention call where one computes the same;
-  3. serve   — 16 requests (prompts of 100..1000 tokens, 64 greedy new
+               card at the serving and training paths' shapes; print
+               max-abs error, tolerance, kernel ms, plain ms, the bound and
+               the time of PyTorch's own attention call where one computes
+               the same; read every flash kernel's dropout mask back and
+               require it bit-identical to the plain version's;
+  3. train   — ERNIE-base in bf16 (random weights from a seed), batch 32,
+               seq 512, through pretraining_loss, backward and AdamW for
+               10 steps; print steps/s, samples/s, tokens/s, MFU, peak
+               memory, the loss of every step (finite), the launches of
+               each flash kernel (12 per step each) and the top kernels of
+               one profiled step;
+  4. train parity — one fp32 step (TF32 off) of a 2-layer full-width ERNIE
+               with attention dropout 0.1, on the card and on the CPU from
+               the same weights and dropout seeds: losses and gradients
+               must agree;
+  5. serve   — 16 requests (prompts of 100..1000 tokens, 64 greedy new
                tokens each) through ServingEngine on GPT-350M in bf16
                (random weights from a seed); print prefill ms per bucket,
                decode-step ms, decode tokens/s and the launches of each
                kernel during this phase, which must all be > 0;
-  4. parity  — the engine against the port's own generate() for 3 requests
+  6. parity  — the engine against the port's own generate() for 3 requests
                in fp32 with TF32 off: greedy streams must be identical.
 
 Every line before the last two carries the card's name and power limit.
@@ -42,6 +55,10 @@ GPT350M = dict(vocab_size=50304, hidden_size=1024, num_layers=24,
                num_heads=16, max_position_embeddings=2048, dropout=0.0)
 SERVE = dict(num_slots=8, block_size=16, num_blocks=1024,
              max_blocks_per_seq=128)
+# ERNIE-base pretraining as bench.py runs it on a chip: ErnieConfig.base()
+# in bf16, AdamW(lr 1e-4), batch 32, seq 512, no attention mask
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 32, 512, 10, 1e-4
+ATTN_DROPOUT = 0.1
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a
 # kernel is the larger of its bytes over the memory rate and its
 # operations over the bf16 tensor-core rate
@@ -53,6 +70,12 @@ BF16_FLOP_PER_S = 989e12
 BF16_ATOL = 1.6e-2
 # lse is f32 from the same bf16 inputs: only the summation order differs
 LSE_ATOL = 1e-3
+# f32 runs of the same kernels: only the summation order differs (out),
+# three products deep for the gradients; a dropout mask that differed in
+# one entry would move an output by ~p / (1 - p) / S ~ 2e-4 at S = 512
+F32_ATOL, F32_GRAD_ATOL = 1e-5, 1e-4
+# bf16 gradients: one bf16 step of the value on top of the output's atol
+BF16_GRAD_RTOL = 2.0 ** -7
 
 TAG = ""
 
@@ -236,6 +259,367 @@ def phase_kernels(dev):
     return results
 
 
+def _max_excess(got, want, atol, rtol=0.0):
+    """(max |got - want|, max of |got - want| - (atol + rtol |want|)):
+    the second is <= 0 when every entry is within tolerance."""
+    d = (got.float() - want.float()).abs()
+    return d.max().item(), (d - atol - rtol * want.float().abs()).max().item()
+
+
+def phase_train_kernels(dev):
+    """The flash kernels at the ERNIE-base training shape (dropout 0.1,
+    non-causal) and a sliding-window shape, against their plain versions,
+    plus a read-back of every kernel's dropout mask."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    B, S, H, D = TRAIN_BATCH, TRAIN_SEQ, 12, 64
+    p, seed = ATTN_DROPOUT, -123456789
+    kw = dict(dropout_p=p, seed=seed)
+    rows = {}
+
+    # masks: each kernel's against dropout_keep, over every (b, h, row, col)
+    masks = fa.probe_dropout_masks(B, H, S, p, seed, dev)
+    want = fa._keep_bhqk(seed, p, B, H, S, S, dev)
+    same = {n: bool(torch.equal(m, want)) for n, m in masks.items()}
+    kept = want.float().mean().item()
+    del masks, want
+    if not all(same.values()):
+        raise AssertionError(f"dropout masks differ from dropout_keep: {same}")
+    say(f"kernel dropout masks [{B},{H},{S},{S}] p={p} seed={seed}: fwd, "
+        f"dkv and dq bit-identical to dropout_keep {same}; kept share "
+        f"{kept:.5f}")
+
+    def inputs(dtype, n=1, shape=(B, S, H, D)):
+        return [[torch.randn(*shape, generator=gen).to(dev, dtype)
+                 for _ in range(4)] for _ in range(n)]
+
+    # f32 at the training shape: tight tolerances on out, lse and grads
+    q, k, v, do = inputs(torch.float32)[0]
+    out, lse = fa.flash_attention_fwd(q, k, v, None, False, None, **kw)
+    r_out, r_lse = fa.flash_attention_plain(q, k, v, None, False, None, **kw)
+    f32_err = {"out": _max_excess(out, r_out, F32_ATOL),
+               "lse": _max_excess(lse, r_lse, LSE_ATOL)}
+    grads = fa.flash_attention_bwd(q, k, v, None, out, lse, do, **kw)
+    r_grads = fa.flash_attention_bwd_plain(q, k, v, None, out, lse, do, **kw)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, r_grads):
+        f32_err[name] = _max_excess(g, r, F32_GRAD_ATOL)
+    torch.cuda.synchronize()
+    del q, k, v, do, out, lse, r_out, r_lse, grads, r_grads
+    shape = f"[{B},{S},{H},{D}]"
+    say(f"kernel flash f32 {shape} dropout {p} vs plain: " + ", ".join(
+        f"{n} max_abs_err {e[0]:.3g}" for n, e in f32_err.items())
+        + f" (tol out {F32_ATOL}, lse {LSE_ATOL}, grads {F32_GRAD_ATOL})")
+    if any(e[1] > 0 for e in f32_err.values()):
+        raise AssertionError(f"f32 flash kernels disagree: {f32_err}")
+
+    # bf16 at the training shape: the path's dtype, timed
+    elem = B * S * H * D
+    sets = inputs(torch.bfloat16, copies_for(4 * elem * 2))
+    q, k, v, do = sets[0]
+    out, lse = fa.flash_attention_fwd(q, k, v, None, False, None, **kw)
+    r_out, r_lse = fa.flash_attention_plain(q, k, v, None, False, None, **kw)
+    err_out = _max_excess(out, r_out, BF16_ATOL)
+    err_lse = _max_excess(lse, r_lse, LSE_ATOL)
+    delta = fa.delta_of(out, do)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, None, lse, delta, do,
+                                        False, None, **kw)
+    dq = fa.flash_attention_bwd_dq(q, k, v, None, lse, delta, do, False,
+                                   None, **kw)
+    r_dq, r_dk, r_dv = fa.flash_attention_bwd_plain(q, k, v, None, out, lse,
+                                                    do, False, None, **kw)
+    errs = {n: _max_excess(g, r, BF16_ATOL, BF16_GRAD_RTOL)
+            for n, g, r in (("dk", dk, r_dk), ("dv", dv, r_dv),
+                            ("dq", dq, r_dq))}
+    del r_out, r_lse, r_dq, r_dk, r_dv
+    if err_out[1] > 0 or err_lse[1] > 0 or any(e[1] > 0
+                                               for e in errs.values()):
+        raise AssertionError(f"bf16 flash kernels disagree: out {err_out} "
+                             f"lse {err_lse} grads {errs}")
+    prep = []
+    for q_, k_, v_, do_ in sets:
+        o_, l_ = fa.flash_attention_fwd(q_, k_, v_, None, False, None, **kw)
+        prep.append((q_, k_, v_, do_, l_, fa.delta_of(o_, do_), o_))
+    fwd_ms = cuda_ms([lambda s=s: fa.flash_attention_fwd(
+        s[0], s[1], s[2], None, False, None, **kw) for s in prep])
+    dkv_ms = cuda_ms([lambda s=s: fa.flash_attention_bwd_dkv(
+        s[0], s[1], s[2], None, s[4], s[5], s[3], False, None, **kw)
+        for s in prep])
+    dq_ms = cuda_ms([lambda s=s: fa.flash_attention_bwd_dq(
+        s[0], s[1], s[2], None, s[4], s[5], s[3], False, None, **kw)
+        for s in prep])
+    plain_fwd_ms = cuda_ms([lambda s=s: fa.flash_attention_plain(
+        s[0], s[1], s[2], None, False, None, **kw) for s in prep], iters=3)
+    plain_bwd_ms = cuda_ms([lambda s=s: fa.flash_attention_bwd_plain(
+        s[0], s[1], s[2], None, s[6], s[4], s[3], False, None, **kw)
+        for s in prep], iters=3)
+    # yardstick: PyTorch's fused attention with dropout on [B, H, S, D]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = [[t.transpose(1, 2).contiguous() for t in s[:4]] for s in prep]
+    lib_fwd_ms = cuda_ms([lambda s=s: sdpa(s[0], s[1], s[2], dropout_p=p)
+                          for s in lib])
+    for s_ in lib:
+        for t in s_[:3]:
+            t.requires_grad_(True)
+
+    def lib_step(s_):
+        o = sdpa(s_[0], s_[1], s_[2], dropout_p=p)
+        torch.autograd.grad(o, s_[:3], s_[3])
+
+    lib_fb_ms = cuda_ms([lambda s=s: lib_step(s) for s in lib])
+    del lib, prep, sets
+    io = elem * 2
+    stats = B * H * S * 4
+    flop1 = 2 * B * H * S * S * D  # one S x S x D product
+    fwd_b = bound_ms(4 * io + stats, 2 * flop1)
+    dkv_b = bound_ms(6 * io + 2 * stats, 4 * flop1)
+    dq_b = bound_ms(5 * io + 2 * stats, 3 * flop1)
+    pair_b = bound_ms(7 * io + 2 * stats, 5 * flop1)
+    rows["fwd_dropout"] = dict(
+        shape=[B, S, H, D], max_abs_err=err_out[0], lse_err=err_lse[0],
+        ms=fwd_ms, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
+        bound_ms=fwd_b[0], bound_by=fwd_b[1])
+    rows["dkv"] = dict(shape=[B, S, H, D], max_abs_err=errs["dk"][0],
+                       dv_err=errs["dv"][0], ms=dkv_ms,
+                       plain_ms=plain_bwd_ms, library_ms=lib_fb_ms,
+                       bound_ms=dkv_b[0], bound_by=dkv_b[1])
+    rows["dq"] = dict(shape=[B, S, H, D], max_abs_err=errs["dq"][0],
+                      ms=dq_ms, plain_ms=plain_bwd_ms, library_ms=lib_fb_ms,
+                      bound_ms=dq_b[0], bound_by=dq_b[1])
+    say(f"kernel flash_fwd {shape} bf16 dropout {p}: max_abs_err "
+        f"{err_out[0]:.3g} (tol {BF16_ATOL}) lse_err {err_lse[0]:.3g} "
+        f"(tol {LSE_ATOL}) ms {fwd_ms:.4f} plain_ms {plain_fwd_ms:.4f} "
+        f"sdpa_ms {lib_fwd_ms:.4f} bound_ms {fwd_b[0]:.5f} ({fwd_b[1]}) "
+        f"achieved {2 * flop1 / (fwd_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    say(f"kernel flash_bwd_dkv {shape} bf16 dropout {p}: max_abs_err "
+        f"dk {errs['dk'][0]:.3g} dv {errs['dv'][0]:.3g} (tol {BF16_ATOL} + "
+        f"{BF16_GRAD_RTOL:.4g}|x|) ms {dkv_ms:.4f} bound_ms "
+        f"{dkv_b[0]:.5f} ({dkv_b[1]}) achieved "
+        f"{4 * flop1 / (dkv_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    say(f"kernel flash_bwd_dq {shape} bf16 dropout {p}: max_abs_err "
+        f"{errs['dq'][0]:.3g} ms {dq_ms:.4f} bound_ms {dq_b[0]:.5f} "
+        f"({dq_b[1]}) achieved {3 * flop1 / (dq_ms * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s")
+    say(f"kernel flash backward pair: {dkv_ms + dq_ms:.4f} ms (+ delta) vs "
+        f"plain backward {plain_bwd_ms:.4f} ms, sdpa fwd+bwd "
+        f"{lib_fb_ms:.4f} ms; bound of the least backward work (5 "
+        f"products) {pair_b[0]:.5f} ms ({pair_b[1]})")
+
+    # sliding window: causal, S = 1024, window 256, forward and backward
+    Bw, Sw, W = 4, 1024, 256
+    wk = dict(dropout_p=0.0, seed=0, window=W)
+    q, k, v, do = inputs(torch.bfloat16, 1, (Bw, Sw, H, D))[0]
+    out, lse = fa.flash_attention_fwd(q, k, v, None, True, None, **wk)
+    r_out, r_lse = fa.flash_attention_plain(q, k, v, None, True, None, **wk)
+    w_err = _max_excess(out, r_out, BF16_ATOL)
+    w_lse = _max_excess(lse, r_lse, LSE_ATOL)
+    grads = fa.flash_attention_bwd(q, k, v, None, out, lse, do, True, None,
+                                   **wk)
+    r_grads = fa.flash_attention_bwd_plain(q, k, v, None, out, lse, do, True,
+                                           None, **wk)
+    w_grad = max(_max_excess(g, r, BF16_ATOL, BF16_GRAD_RTOL)[1]
+                 for g, r in zip(grads, r_grads))
+    if w_err[1] > 0 or w_lse[1] > 0 or w_grad > 0:
+        raise AssertionError(f"window flash kernels disagree: out {w_err} "
+                             f"lse {w_lse} grad excess {w_grad}")
+    w_ms = cuda_ms([lambda: fa.flash_attention_fwd(q, k, v, None, True,
+                                                   None, **wk)])
+    w_plain = cuda_ms([lambda: fa.flash_attention_plain(
+        q, k, v, None, True, None, **wk)], iters=3)
+    mask = torch.ones(Sw, Sw, dtype=torch.bool, device=dev).tril()
+    mask &= ~torch.ones(Sw, Sw, dtype=torch.bool, device=dev).tril(-W - 1)
+    lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    w_lib = cuda_ms([lambda: sdpa(lq, lk, lv, attn_mask=mask)])
+    entries = sum(min(r, W) + 1 for r in range(Sw))
+    w_b = bound_ms(4 * Bw * Sw * H * D * 2 + Bw * H * Sw * 4,
+                   4 * D * entries * Bw * H)
+    rows["fwd_window"] = dict(
+        shape=[Bw, Sw, H, D], window=W, max_abs_err=w_err[0],
+        lse_err=w_lse[0], ms=w_ms, plain_ms=w_plain, library_ms=w_lib,
+        bound_ms=w_b[0], bound_by=w_b[1])
+    say(f"kernel flash_fwd [{Bw},{Sw},{H},{D}] bf16 causal window {W}: "
+        f"max_abs_err {w_err[0]:.3g} (tol {BF16_ATOL}) lse_err "
+        f"{w_lse[0]:.3g}; backward within tolerance; ms {w_ms:.4f} "
+        f"plain_ms {w_plain:.4f} sdpa_ms (band mask) {w_lib:.4f} bound_ms "
+        f"{w_b[0]:.5f} ({w_b[1]})")
+    return rows
+
+
+def _ernie_batch(cfg, batch, seq, seed):
+    """ids and labels as bench.py draws them: RandomState(seed)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (batch, seq))
+    labels = rng.randint(0, cfg.vocab_size, (batch, seq))
+    return torch.from_numpy(ids), torch.from_numpy(labels)
+
+
+def phase_train(dev):
+    import torch
+
+    from paddle_tpu_torch import AdamW, ErnieConfig, ErnieForPretraining
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = ErnieConfig.base()
+    t0 = time.perf_counter()
+    model = ErnieForPretraining(cfg, device=dev, dtype=torch.bfloat16,
+                                seed=0)
+    model.train()
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(model.named_parameters(), learning_rate=TRAIN_LR,
+                device=dev)
+    ids, labels = (t.to(dev) for t in _ernie_batch(cfg, TRAIN_BATCH,
+                                                   TRAIN_SEQ, 0))
+    say(f"train: ERNIE-base bf16 ({n_params} parameters) built in "
+        f"{time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} seq "
+        f"{TRAIN_SEQ}, AdamW lr {TRAIN_LR}, attention dropout "
+        f"{cfg.attention_probs_dropout_prob}, hidden dropout "
+        f"{cfg.hidden_dropout_prob}")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = model.pretraining_loss(ids, labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    for _ in range(2):  # warm-up: cuBLAS handles, kernel libraries, allocator
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels = {"flash_fwd": fa.KERNEL, "flash_bwd_dkv": fa.DKV_KERNEL,
+               "flash_bwd_dq": fa.DQ_KERNEL}
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: kern.launches for n, kern in kernels.items()}
+    losses = [x.item() for x in losses]
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: non-finite loss {losses}")
+    want = cfg.num_hidden_layers * TRAIN_STEPS
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"train: launches {launches}, expected {want} "
+                             "of each")
+    steps_s = TRAIN_STEPS / wall
+    # bench.py's analytic MFU: 6 FLOPs per parameter per token + attention
+    l, h, s = cfg.num_hidden_layers, cfg.hidden_size, TRAIN_SEQ
+    flops_step = (6 * n_params + 12 * l * h * s) * TRAIN_BATCH * TRAIN_SEQ
+    name = torch.cuda.get_device_name(dev)
+    peak_flops = 756e12 if "PCIe" in name else BF16_FLOP_PER_S
+    mfu = flops_step * steps_s / peak_flops
+    say(f"train: {TRAIN_STEPS} steps in {wall:.3f} s: {steps_s:.3f} steps/s, "
+        f"{steps_s * TRAIN_BATCH:.2f} samples/s, "
+        f"{steps_s * TRAIN_BATCH * TRAIN_SEQ:.0f} tokens/s, "
+        f"{wall / TRAIN_STEPS * 1e3:.1f} ms/step; MFU {mfu:.4f} "
+        f"({flops_step / 1e12:.2f} TFLOP/step against "
+        f"{peak_flops / 1e12:.0f} TFLOP/s); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    say(f"train: losses {[round(x, 5) for x in losses]}")
+    say(f"train: launches {launches} ({cfg.num_hidden_layers} per step each)")
+
+    # one profiled step, after the counted run: device time by kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    # device kernels only: not the CPU ops above them, not the ranges that
+    # record_function annotations (the optimizer's step) draw on the card
+    kernels_only = sorted(
+        (e for e in prof.key_averages()
+         if _device_us(e) > 0 and "cuda" in str(
+             getattr(e, "device_type", "")).lower()
+         and not getattr(e, "is_user_annotation", False)
+         and "#" not in e.key),
+        key=_device_us, reverse=True)
+    if not kernels_only:
+        say("train: profile: no device time recorded (not measured)")
+    else:
+        ktotal = sum(_device_us(e) for e in kernels_only) / 1e3
+        say(f"train: profiled step: {prof_wall * 1e3:.1f} ms wall, "
+            f"{ktotal:.2f} ms of kernel time in {len(kernels_only)} kernels "
+            f"(device busy share {ktotal / (prof_wall * 1e3):.3f}); "
+            f"launches {sum(e.count for e in kernels_only)}")
+        for e in kernels_only[:12]:
+            say(f"train:   {_device_us(e) / 1e3:9.3f} ms {e.count:5d}x "
+                f"{e.key[:90]}")
+    return launches, dict(steps_s=steps_s, mfu=mfu, losses=losses,
+                          peak_gib=peak / 2**30)
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, attr, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def phase_train_parity(dev):
+    """One fp32 step on the card and on the CPU from the same weights and
+    the same attention-dropout seeds (hidden dropout 0: a CUDA and a CPU
+    generator draw different bits)."""
+    import torch
+
+    from paddle_tpu_torch import AdamW, ErnieConfig, ErnieForPretraining
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ErnieConfig(num_hidden_layers=2, hidden_dropout_prob=0.0)
+    ids, labels = _ernie_batch(cfg, 2, TRAIN_SEQ, 1)
+    results = []
+    for where in (dev, torch.device("cpu")):
+        model = ErnieForPretraining(cfg, device=where, seed=3)
+        model.train()
+        opt = AdamW(model.named_parameters(), learning_rate=TRAIN_LR,
+                    device=where)
+        loss = model.pretraining_loss(ids.to(where), labels.to(where))
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        opt.step()
+        params = {n: p.detach().cpu().clone()
+                  for n, p in model.named_parameters()}
+        results.append((loss.item(), grads, params))
+        del model, opt
+    (l_gpu, g_gpu, p_gpu), (l_cpu, g_cpu, p_cpu) = results
+    if set(g_gpu) != set(g_cpu):
+        raise AssertionError("train parity: different parameters got grads")
+    # each tensor's error over its largest entry, floored at 1e-3 of the
+    # largest entry of all: a gradient that is 0 in exact arithmetic
+    # (the k_proj bias: softmax ignores a per-row shift) is rounding noise
+    # on both sides and has no scale of its own
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    worst = max(((g_gpu[n] - g_cpu[n]).abs().max().item()
+                 / max(g_cpu[n].abs().max().item(), 1e-3 * top), n)
+                for n in g_cpu)
+    step_diff = max((p_gpu[n] - p_cpu[n]).abs().max().item() for n in p_cpu)
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    say(f"train parity: fp32 2-layer ERNIE-base width, batch 2 seq 512, "
+        f"attention dropout {cfg.attention_probs_dropout_prob}: loss card "
+        f"{l_gpu:.7f} cpu {l_cpu:.7f} (rel {loss_rel:.2e}, tol 1e-5); "
+        f"worst gradient error {worst[0]:.2e} of its tensor's largest "
+        f"entry, floored at 1e-3 of the largest of all ({worst[1]}; tol "
+        f"1e-3); {len(g_cpu)} gradients; largest "
+        f"parameter difference after the AdamW step {step_diff:.2e} "
+        f"(tol {2 * TRAIN_LR:.0e}: a near-zero gradient whose sign "
+        "differs moves its weight by at most 2 lr on the first step)")
+    if not (loss_rel <= 1e-5 and worst[0] <= 1e-3
+            and step_diff <= 2 * TRAIN_LR + 1e-6):
+        raise AssertionError("train parity: card and CPU disagree")
+
+
 def _prompts(rng, lengths, vocab):
     return [rng.integers(0, vocab, size=n).astype("int32") for n in lengths]
 
@@ -269,6 +653,7 @@ def phase_serve(dev):
     fa.KERNEL.launches = 0
     pa.KERNEL.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     rids = [eng.submit(p, SamplingParams(max_new_tokens=64))
             for p in prompts]
@@ -374,6 +759,9 @@ def main() -> int:
     try:
         phase_build()
         kernels = phase_kernels(dev)
+        kernels.update(phase_train_kernels(dev))
+        train_launches, _ = phase_train(dev)
+        phase_train_parity(dev)
         launches, _ = phase_serve(dev)
         phase_parity(dev)
     except Exception:
@@ -381,23 +769,34 @@ def main() -> int:
         say("FAILED")
         return 1
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    f = max(kernels["flash_fwd"], key=lambda r: r["L"])
+    fd = kernels["fwd_dropout"]
     p = kernels["paged_attention"][0]
+    flash_errs = [r["max_abs_err"] for r in kernels["flash_fwd"]] + [
+        fd["max_abs_err"], kernels["fwd_window"]["max_abs_err"]]
+
+    def row(name, src, replaces, n, r, err=None):
+        return {"name": name, "route": "cuda",
+                "source": f"paddle_tpu_torch/csrc/{src}",
+                "replaces": f"paddle_tpu/ops/pallas/{replaces}",
+                "launches": n,
+                "max_abs_err": r["max_abs_err"] if err is None else err,
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]}
+
+    # flash_fwd: launches in both paths; times at the training shape
     summary = {"card": card, "kernels": [
-        {"name": "flash_fwd", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:155",
-         "launches": launches["flash_fwd"],
-         "max_abs_err": max(r["max_abs_err"] for r in kernels["flash_fwd"]),
-         "ms": f["ms"], "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
-         "bound_by": f["bound_by"], "library_ms": f["library_ms"]},
-        {"name": "paged_attention", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:151",
-         "launches": launches["paged_attention"],
-         "max_abs_err": p["max_abs_err"], "ms": p["ms"],
-         "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
-         "bound_by": p["bound_by"], "library_ms": None},
+        dict(row("flash_fwd", "flash_fwd.cu", "flash_attention.py:155",
+                 launches["flash_fwd"] + train_launches["flash_fwd"], fd,
+                 max(flash_errs)),
+             launches_by_path={"serve": launches["flash_fwd"],
+                               "train": train_launches["flash_fwd"]}),
+        row("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:272",
+            train_launches["flash_bwd_dkv"], kernels["dkv"]),
+        row("flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:318",
+            train_launches["flash_bwd_dq"], kernels["dq"]),
+        row("paged_attention", "paged_attention.cu",
+            "paged_attention.py:151", launches["paged_attention"], p),
     ]}
     print(card)
     print(json.dumps(summary))

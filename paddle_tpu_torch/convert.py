@@ -1,12 +1,14 @@
-"""Carry a ``paddle_tpu`` GPT's weights into the port.
+"""Carry a ``paddle_tpu`` model's weights into the port, and the port's
+gradients back into the JAX package's layout.
 
 The JAX package stores a linear's weight as [in, out] and applies
-``x @ w``; ``torch.nn.Linear`` stores [out, in]. This module transposes the
-four linears of every block and keeps everything else as it is (the
-parameter names already agree, and the LM head is tied to ``wte`` in both).
+``x @ w``; ``torch.nn.Linear`` stores [out, in]. The weights transposed
+are those of the port model's ``nn.Linear`` modules; everything else
+(embeddings, norms, biases, ERNIE's ``mlm_bias``) carries as it is: the
+parameter names already agree.
 
     sd = {k: v.numpy() for k, v in jax_model.state_dict().items()}
-    port_model.load_state_dict(from_jax_state(sd))
+    port_model.load_state_dict(from_jax_state(sd, port_model))
 """
 from __future__ import annotations
 
@@ -14,23 +16,39 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["from_jax_state"]
-
-#: parameter-name suffixes of the linears whose weight is transposed
-LINEAR_WEIGHTS = ("attn.qkv.weight", "attn.proj.weight", "mlp.fc1.weight",
-                  "mlp.fc2.weight")
+__all__ = ["from_jax_state", "to_jax_layout"]
 
 
-def from_jax_state(state: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+def _transposed(model: nn.Module):
+    """Predicate: is this parameter name a linear weight of ``model``?"""
+    names = {f"{n}.weight" for n, m in model.named_modules()
+             if isinstance(m, nn.Linear)}
+    return names.__contains__
+
+
+def from_jax_state(state: Mapping[str, np.ndarray],
+                   model: nn.Module) -> Dict[str, torch.Tensor]:
     """paddle_tpu state dict (name -> numpy array) -> port state dict
     (name -> CPU tensor, same dtype)."""
+    is_linear = _transposed(model)
     out = {}
     for name, value in state.items():
         a = np.asarray(value)
-        if name.endswith(LINEAR_WEIGHTS):
+        if is_linear(name):
             if a.ndim != 2:
                 raise ValueError(f"{name}: linear weight of shape {a.shape}")
             a = a.T
         out[name] = torch.from_numpy(np.array(a))  # a writable copy
     return out
+
+
+def to_jax_layout(tensors: Mapping[str, torch.Tensor],
+                  model: nn.Module) -> Dict[str, np.ndarray]:
+    """The reverse map, for parameters or their gradients: port name ->
+    tensor in, name -> numpy array in the JAX package's layout out."""
+    is_linear = _transposed(model)
+    return {name: (t.detach().cpu().numpy().T if is_linear(name)
+                   else t.detach().cpu().numpy())
+            for name, t in tensors.items()}

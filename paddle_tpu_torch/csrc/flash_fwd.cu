@@ -1,9 +1,11 @@
 // Flash attention forward for Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py, `_fwd_kernel` (launched
-// by `_fwd`) — online-softmax attention over KV tiles, f32 statistics, causal
-// tiles with no unmasked entry skipped, an optional additive kv_bias per key
-// column, and the row log-sum-exp written beside the output.
+// by `_fwd`) — online-softmax attention over KV tiles, f32 statistics, tiles
+// outside the causal / sliding-window band skipped, an optional additive
+// kv_bias per key column, attention-probability dropout from a position
+// hash (the denominator sums the undropped p, the output the dropped and
+// rescaled p), and the row log-sum-exp written beside the output.
 //
 // What bounds it on this card: at the serving path's prefill shapes (one
 // sequence of 128..2048 tokens, 16 heads, head dim 64, bf16) the bytes that
@@ -17,6 +19,9 @@
 // from conflict-free 16-byte shared loads, and causal tiles past the diagonal
 // are never loaded. Tensor cores (mma/wgmma) are the next step.
 //
+// Training shapes (ERNIE-base: 32 x 12 heads x 512 x 64, non-causal, bf16)
+// are bound the same way: 25.8 GFLOP per call against 100 MB of traffic.
+//
 // Layout: q [B, Sq, H, D], k/v [B, Sk, H, D] (contiguous), kv_bias [B, Sk]
 // f32 or null, out like q, lse [B, H, Sq] f32. A row whose every entry is
 // masked (outside the causal band, past Sk, or with a -inf bias) gives zeros
@@ -26,17 +31,13 @@
 // (r = t / 8, i < 4) of the q tile, score columns c + 8j (c = t % 8, j < 8)
 // of each KV tile, and output dims c + 8j (j < D / 8).
 
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // q rows per block
-constexpr int BK = 64;       // keys per KV tile
-constexpr int THREADS = 128;
-constexpr int PP = BK + 8;   // pitch of the probability tile
+using namespace ptt::flash;
 
-// pitch of the Q and K rows: 16-byte aligned, conflict-free float4 reads
-__host__ __device__ constexpr int qk_pitch(int d) { return d + 4; }
+constexpr int PP = BK + 8;   // pitch of the probability tile
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -48,38 +49,13 @@ constexpr size_t smem_bytes() {
           BK);                                       // Bs
 }
 
-// Copy 64 rows of D elements (row stride `stride` elements) into shared
-// memory as f32 with row pitch `pitch`; rows >= valid_rows become zeros so
-// masked columns never multiply stale memory.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int pitch,
-                                          const T* __restrict__ src,
-                                          int64_t stride, int valid_rows) {
-  constexpr int N = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int PER_ROW = D / N;
-  for (int idx = threadIdx.x; idx < 64 * PER_ROW; idx += THREADS) {
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * N;
-    float v[N];
-    if (r < valid_rows) {
-      ptt::load_f32<T, N>(src + r * stride + c, v);
-    } else {
-#pragma unroll
-      for (int i = 0; i < N; ++i) v[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < N; i += 4)
-      *reinterpret_cast<float4*>(&dst[r * pitch + c + i]) =
-          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ kv_bias,
                  T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk,
-                 int H, float scale, int causal) {
+                 int H, float scale, int causal, int window, unsigned seed,
+                 Dropout drop) {
   constexpr int QP = qk_pitch(D);
   constexpr int DJ = D / 8;  // output dims per thread
   extern __shared__ float4 smem4[];
@@ -98,6 +74,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t stride = static_cast<int64_t>(H) * D;
   const T* kb = k + static_cast<int64_t>(b) * Sk * stride + h * D;
   const T* vb = v + static_cast<int64_t>(b) * Sk * stride + h * D;
+  drop.set_block(seed, b, h);
 
   load_tile<T, D>(Qs, QP, q + (static_cast<int64_t>(b) * Sq + q0) * stride + h * D,
                   stride, min(BQ, Sq - q0));
@@ -111,10 +88,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
   }
 
-  int n_kv = (Sk + BK - 1) / BK;
-  if (causal) n_kv = min(n_kv, (q0 + BQ - 1) / BK + 1);  // skip tiles past the band
+  // KV tiles holding any visible entry of this q tile (`_block_runs`)
+  int kv_begin = 0;
+  int kv_end = (Sk + BK - 1) / BK;
+  if (causal) {
+    kv_end = min(kv_end, (q0 + BQ - 1) / BK + 1);
+    if (window > 0 && q0 > window) kv_begin = (q0 - window) / BK;
+  }
 
-  for (int ik = 0; ik < n_kv; ++ik) {
+  for (int ik = kv_begin; ik < kv_end; ++ik) {
     const int k0 = ik * BK;
     const int kvalid = min(BK, Sk - k0);
     __syncthreads();  // the previous tile's Ks / Vs / Ps are consumed
@@ -155,8 +137,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = k0 + c + 8 * j;
-        const bool valid = col < Sk && (!causal || col <= row);
-        const float x = valid ? s[i][j] * scale + Bs[c + 8 * j] : -INFINITY;
+        const float x = visible(row, col, Sk, causal, window)
+                            ? s[i][j] * scale + Bs[c + 8 * j]
+                            : -INFINITY;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -170,8 +153,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float p = expf(s[i][j] - m_new);  // masked: exp(-inf) = 0
-        Ps[(r + 16 * i) * PP + c + 8 * j] = p;
-        sum += p;
+        sum += p;  // the denominator takes every p, dropped or not
+        float pe = p;
+        if (drop.on)
+          pe = drop.keep(row, k0 + c + 8 * j) ? p * drop.inv_keep : 0.f;
+        Ps[(r + 16 * i) * PP + c + 8 * j] = pe;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -218,34 +204,38 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+struct Args {
+  const void *q, *k, *v, *kv_bias;
+  void *out, *lse;
+  int B, Sq, Sk, H;
+  float scale;
+  int causal, window;
+  unsigned seed;
+  Dropout drop;
+};
+
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* kv_bias, void* out, void* lse, int B, int Sq,
-                   int Sk, int H, float scale, int causal,
-                   cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(kv_bias),
-      static_cast<T*>(out), static_cast<float*>(lse), Sq, Sk, H, scale,
-      causal);
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.kv_bias),
+      static_cast<T*>(a.out), static_cast<float*>(a.lse), a.Sq, a.Sk, a.H,
+      a.scale, a.causal, a.window, a.seed, a.drop);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const void* kv_bias, void* out, void* lse, int B,
-                       int Sq, int Sk, int H, float scale, int causal,
-                       cudaStream_t stream) {
+cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, kv_bias, out, lse, B, Sq, Sk, H, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, kv_bias, out, lse, B, Sq, Sk, H, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, kv_bias, out, lse, B, Sq, Sk, H, scale, causal, stream);
+    case 32: return launch<T, 32>(a, stream);
+    case 64: return launch<T, 64>(a, stream);
+    case 128: return launch<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -253,17 +243,19 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // C interface for ctypes. dtype: 0 = f32, 1 = bf16; kv_bias may be null.
+// window: 0, or the sliding-window band (needs causal). dropout: 0 = off,
+// else keep an entry when its hash is >= thresh and scale it by inv_keep.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kv_bias, void* out, void* lse, int B,
                          int Sq, int Sk, int H, int D, float scale,
-                         int causal, int dtype, void* stream) {
+                         int causal, int window, int dropout, unsigned seed,
+                         unsigned thresh, float inv_keep, int dtype,
+                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::DTYPE_F32)
-    return dispatch_d<float>(D, q, k, v, kv_bias, out, lse, B, Sq, Sk, H,
-                             scale, causal, s);
-  if (dtype == ptt::DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, kv_bias, out, lse, B, Sq,
-                                     Sk, H, scale, causal, s);
+  Args a{q, k, v, kv_bias, out, lse, B, Sq, Sk, H, scale, causal, window,
+         seed, Dropout{dropout, thresh, inv_keep, 0u}};
+  if (dtype == ptt::DTYPE_F32) return dispatch_d<float>(D, a, s);
+  if (dtype == ptt::DTYPE_BF16) return dispatch_d<__nv_bfloat16>(D, a, s);
   return cudaErrorInvalidValue;
 }

@@ -1,1 +1,1 @@
-"""Models served by the port."""
+"""Models of the port: GPT (serving) and ERNIE (pretraining)."""

@@ -295,7 +295,7 @@ class GPTModel(nn.Module):
 class GPTForCausalLM(nn.Module):
     """The serving model. Runs on the CUDA card unless ``device`` names
     another; weights are random from ``seed`` (or carried over with
-    ``load_state_dict(convert.from_jax_state(...))``). Inference only:
+    ``load_state_dict(convert.from_jax_state(sd, model))``). Inference only:
     parameters take no gradient."""
 
     def __init__(self, cfg: GPTConfig, device=None, dtype=torch.float32,

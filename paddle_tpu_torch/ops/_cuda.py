@@ -33,7 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: every kernel source of the package, in build order
-KERNEL_SOURCES = ("flash_fwd.cu", "paged_attention.cu")
+KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_attention.cu")
 #: element types the kernels take, by the codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels are instantiated for

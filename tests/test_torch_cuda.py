@@ -9,7 +9,9 @@ also runs where JAX is not installed:
 Tolerances: f32 inputs differ from the plain version only in summation
 order (1e-5); bf16 outputs may differ by one bf16 rounding step (2^-6 for
 |x| < 4, and attention outputs are convex sums of N(0, 1) values); lse is
-f32 on both sides (1e-4).
+f32 on both sides (1e-4). Gradients: f32 1e-4 (three products deep, each
+summed in another order), bf16 one bf16 step of the value (rtol 2^-7)
+plus 1.6e-2. Dropout masks are integer hashes: bit-identical.
 """
 import numpy as np
 import pytest
@@ -101,3 +103,67 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     pos = torch.zeros(2, 1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="int32"):
         tpa.paged_attention(q, pool, pool, table, pos, block_size=4)
+
+
+BWD_TOLS = [(torch.float32, 1e-4, 0.0), (torch.bfloat16, 1.6e-2, 2.0 ** -7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", BWD_TOLS)
+@pytest.mark.parametrize("S,causal,p,window,padded", [
+    (256, False, 0.1, 0, False), (200, True, 0.0, 0, True),
+    (200, False, 0.1, 0, True), (256, True, 0.1, 64, False)])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_forward_and_backward_kernels_match_plain(
+        cuda_device, dtype, atol, rtol, S, causal, p, window, padded, D):
+    rng = np.random.default_rng(S + D)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, S, 4, D))
+                                    .astype(np.float32)).to(cuda_device, dtype)
+                   for _ in range(4))
+    kvb = None
+    if padded:
+        b = np.zeros((2, S), np.float32)
+        b[0, S - 40:] = -1e9
+        kvb = torch.from_numpy(b).to(cuda_device)
+    args = (causal, None, p, -99, window)
+    out, lse = tfa.flash_attention_fwd(q, k, v, kvb, *args)
+    want_out, want_lse = tfa.flash_attention_plain(q, k, v, kvb, *args)
+    torch.testing.assert_close(out.float(), want_out.float(),
+                               atol=1e-5 if dtype == torch.float32
+                               else 1.6e-2, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    before = (tfa.DKV_KERNEL.launches, tfa.DQ_KERNEL.launches)
+    got = tfa.flash_attention_bwd(q, k, v, kvb, out, lse, do, *args)
+    torch.cuda.synchronize()
+    assert (tfa.DKV_KERNEL.launches, tfa.DQ_KERNEL.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = tfa.flash_attention_bwd_plain(q, k, v, kvb, out, lse, do, *args)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                   rtol=rtol, msg=name)
+    again = tfa.flash_attention_bwd(q, k, v, kvb, out, lse, do, *args)
+    for g, g2 in zip(got, again):  # no atomics: the same bits every run
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.cuda
+def test_kernels_draw_the_plain_versions_dropout_masks(cuda_device):
+    masks = tfa.probe_dropout_masks(2, 3, 320, 0.1, -2**31, cuda_device)
+    want = tfa._keep_bhqk(-2**31, 0.1, 2, 3, 320, 320, cuda_device)
+    for name, got in masks.items():
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.cuda
+def test_autograd_launches_each_kernel_once(cuda_device):
+    q, k, v = (torch.randn(2, 256, 4, 64, device=cuda_device,
+                           dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    kernels = (tfa.KERNEL, tfa.DKV_KERNEL, tfa.DQ_KERNEL)
+    before = [x.launches for x in kernels]
+    out = tfa.flash_attention(q, k, v, dropout_p=0.1, dropout_seed=5)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert [x.launches - b for x, b in zip(kernels, before)] == [1, 1, 1]
+    assert all(t.grad is not None and t.grad.dtype == torch.bfloat16
+               for t in (q, k, v))

@@ -38,7 +38,7 @@ def make_pair(position_embedding="learned", seed=0):
     tm = GPTForCausalLM(GPTConfig(position_embedding=position_embedding,
                                   **TINY), device="cpu")
     tm.load_state_dict(from_jax_state(
-        {k: v.numpy() for k, v in jm.state_dict().items()}))
+        {k: v.numpy() for k, v in jm.state_dict().items()}, tm))
     return jm, tm
 
 
@@ -60,7 +60,7 @@ def test_state_dict_names_and_shapes_agree(pair):
         assert tuple(tsd[name].shape) == shape, name
     # functional_state()'s raw jax arrays carry over the same way
     params, _ = jm.functional_state()
-    for name, w in from_jax_state(params).items():
+    for name, w in from_jax_state(params, tm).items():
         assert torch.equal(w, tsd[name]), name
 
 

@@ -18,7 +18,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from paddle_tpu_torch import (GPTConfig, GPTForCausalLM, ServingConfig,
+from paddle_tpu_torch import (AdamW, ErnieConfig, ErnieForPretraining,
+                              GPTConfig, GPTForCausalLM, ServingConfig,
                               ServingEngine)
 from paddle_tpu_torch.ops import _cuda
 from paddle_tpu_torch.ops import flash_attention as tfa
@@ -30,6 +31,9 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
 TINY = dict(vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
             max_position_embeddings=64)
+TINY_ERNIE = dict(vocab_size=1024, hidden_size=64, num_hidden_layers=1,
+                  num_attention_heads=1, intermediate_size=128,
+                  max_position_embeddings=128)
 
 
 def _port_files():
@@ -67,6 +71,18 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert eng.device == torch.device("cpu")
 
 
+def test_training_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ErnieConfig(**TINY_ERNIE)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ErnieForPretraining(cfg)
+    model = ErnieForPretraining(cfg, device="cpu")
+    assert model.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AdamW(model.parameters())
+    AdamW(model.parameters(), device="cpu")
+
+
 def test_engine_and_model_must_share_a_device():
     model = GPTForCausalLM(GPTConfig(**TINY), device="cpu")
     with pytest.raises(ValueError, match="model lives on"):
@@ -87,6 +103,18 @@ def test_cpu_wrappers_take_plain_versions_and_launch_nothing():
     assert torch.equal(got, tpa.paged_attention_plain(
         qd, pool, pool, table, pos, block_size=4))
     assert (tfa.KERNEL.launches, tpa.KERNEL.launches) == before
+
+
+def test_cpu_training_step_launches_nothing():
+    """An ERNIE step through the flash path (seq 128, attention dropout)
+    on CPU tensors: plain versions only, no kernel counted."""
+    kernels = (tfa.KERNEL, tfa.DKV_KERNEL, tfa.DQ_KERNEL)
+    before = [k.launches for k in kernels]
+    model = ErnieForPretraining(ErnieConfig(**TINY_ERNIE), device="cpu")
+    ids = torch.randint(0, 1024, (1, 128))
+    model.pretraining_loss(ids, ids).backward()
+    AdamW(model.named_parameters(), device="cpu").step()
+    assert [k.launches for k in kernels] == before
 
 
 def test_kernel_sources_exist_and_are_keyed_by_content():
