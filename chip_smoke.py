@@ -10,11 +10,14 @@ Phases (any failure exits non-zero):
                paged attention) with nvcc, all sources at once, and print
                the build seconds;
   2. kernels — hold each kernel against its plain PyTorch version on the
-               card at the serving and training paths' shapes; print
-               max-abs error, tolerance, kernel ms, plain ms, the bound and
-               the time of PyTorch's own attention call where one computes
-               the same; read every flash kernel's dropout mask back and
-               require it bit-identical to the plain version's;
+               card at the serving and training paths' shapes (the paged
+               kernel's fp and int8 branches at the decode step's shape);
+               print max-abs error, tolerance, kernel ms, plain ms, the
+               bound and the time of PyTorch's own attention call where one
+               computes the same; read every flash kernel's dropout mask
+               back and require it bit-identical to the plain version's;
+               run fp16 and a head dim of 80 (zero-padded to 128) through
+               every kernel against the plain versions;
   3. train   — ERNIE-base in bf16 (random weights from a seed), batch 32,
                seq 512, through pretraining_loss, backward and AdamW for
                10 steps; print steps/s, samples/s, tokens/s, MFU, peak
@@ -31,7 +34,18 @@ Phases (any failure exits non-zero):
                decode-step ms, decode tokens/s and the launches of each
                kernel during this phase, which must all be > 0;
   6. parity  — the engine against the port's own generate() for 3 requests
-               in fp32 with TF32 off: greedy streams must be identical.
+               in fp32 with TF32 off: greedy streams must be identical;
+  7. quantized serve — phase 5's requests through ServingEngine with
+               quantize_weights and quantize_kv (int8 linears, int8 KV pools
+               with f32 scales, decode through the paged kernel's int8
+               branch); print the same metrics and the bytes saved; the
+               int8 branch must launch 24 times per decode step;
+  8. quantized parity — a 2-layer GPT-350M-width model in fp32 with TF32
+               off, quantized engines on the card and on the CPU: greedy
+               streams identical, logits within tolerance.
+
+Before each path's run every launch count is set to 0, and after it every
+kernel of the path must have launched.
 
 Every line before the last two carries the card's name and power limit.
 The line before the last is the kernels' JSON summary; the last line is
@@ -76,6 +90,12 @@ LSE_ATOL = 1e-3
 F32_ATOL, F32_GRAD_ATOL = 1e-5, 1e-4
 # bf16 gradients: one bf16 step of the value on top of the output's atol
 BF16_GRAD_RTOL = 2.0 ** -7
+# f16 outputs: one f16 step, 2^-9 for |x| in [2, 4); f16 gradients one f16
+# step of the value (2^-10) on top of 4e-3
+F16_ATOL, F16_GRAD_ATOL, F16_GRAD_RTOL = 2e-3, 4e-3, 2.0 ** -10
+# quantized parity (fp32, TF32 off, card vs CPU): both dequantize the same
+# int8 weights; logits differ by summation order through 2 layers
+QPARITY_RTOL = 1e-4
 
 TAG = ""
 
@@ -256,7 +276,159 @@ def phase_kernels(dev):
         f"pos=-1 row max|out| {zero_err} ms {ms:.4f} plain_ms "
         f"{plain_ms:.4f} bound_ms {b_ms:.5f} ({b_by}) "
         f"achieved {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
+
+    # -- the int8 branch: the same step over int8 pools with f32 scales
+    from paddle_tpu_torch.quantization import kv as kvq
+
+    del sets, q, kp, vp
+    qsets = []
+    for _ in range(copies_for(2 * NB * BS * H * (D + 4))):
+        q = torch.randn(B, 1, H, D, generator=gen).to(dev, torch.bfloat16)
+        kq, vq = (kvq.quantize_pool(torch.randn(NB, BS, H, D, generator=gen)
+                                    .to(dev, torch.bfloat16))
+                  for _ in range(2))
+        qsets.append((q, kq.data, vq.data, dict(k_scale=kq.scale,
+                                                v_scale=vq.scale)))
+    q, kd, vd, sc = qsets[0]
+    out = pa.paged_attention(q, kd, vd, table, pos, block_size=BS, **sc)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_plain(q, kd, vd, table, pos, block_size=BS,
+                                   **sc)
+    err = (out.float() - ref.float()).abs().max().item()
+    z = pa.paged_attention(q[:1], kd, vd, table[:1],
+                           torch.full((1, 1), -1, dtype=torch.int32,
+                                      device=dev), block_size=BS, **sc)
+    zero_err = z.float().abs().max().item()
+    if not (err <= BF16_ATOL and zero_err == 0.0):
+        raise AssertionError(f"paged int8: max_abs_err {err} (tol "
+                             f"{BF16_ATOL}), pos=-1 row max |out| "
+                             f"{zero_err} (want 0)")
+    ms = cuda_ms([lambda s=s: pa.paged_attention(
+        s[0], s[1], s[2], table, pos, block_size=BS, **s[3])
+        for s in qsets])
+    plain_ms = cuda_ms([lambda s=s: pa.paged_attention_plain(
+        s[0], s[1], s[2], table, pos, block_size=BS, **s[3])
+        for s in qsets], iters=5)
+    # int8 payload plus one f32 scale per visible token, head and {k, v}
+    nbytes = (2 * n_tok * H * (D + 4) + 2 * B * H * D * 2 + B * M * 4
+              + B * 4)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    results["paged_attention_int8"] = [dict(
+        B=B, M=M, visible_tokens=n_tok, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)]
+    say(f"kernel paged_attention_int8 q [8,1,16,64] bf16, int8 pools "
+        f"[{NB},16,16,64] + f32 scales [{NB},16,16,1], {n_tok} visible "
+        f"tokens: max_abs_err {err:.3g} (tol {BF16_ATOL}) pos=-1 row "
+        f"max|out| {zero_err} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        f"bound_ms {b_ms:.5f} ({b_by}) achieved "
+        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
     return results
+
+
+def phase_variant_kernels(dev):
+    """fp16 and a head dim of 80 through every kernel: the flash forward
+    and both backward kernels through scaled_dot_product_attention under
+    autograd (D = 80 zero-padded to 128 at the scale 1 / sqrt(80)), and
+    the paged kernel's fp and int8 branches over pools allocated as the
+    model allocates them (D = 80 at 128, the extra columns zero); each
+    against its plain version. Returns one row per case."""
+    import torch
+
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.quantization import kv as kvq
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    tols = {torch.bfloat16: (BF16_ATOL, BF16_ATOL, BF16_GRAD_RTOL),
+            torch.float16: (F16_ATOL, F16_GRAD_ATOL, F16_GRAD_RTOL)}
+    rows = []
+    kernels = (fa.KERNEL, fa.DKV_KERNEL, fa.DQ_KERNEL)
+    B, S, H = 2, 512, 16
+    for dtype, D in ((torch.float16, 64), (torch.bfloat16, 80),
+                     (torch.float16, 80)):
+        atol, g_atol, g_rtol = tols[dtype]
+        base = [torch.randn(B, S, H, D, generator=gen).to(dev, dtype)
+                for _ in range(4)]
+        ours = [t.clone().requires_grad_(True) for t in base[:3]]
+        ref = [t.clone().requires_grad_(True) for t in base[:3]]
+        before = [k.launches for k in kernels]
+        out = F.scaled_dot_product_attention(*ours, is_causal=True)
+        out.backward(base[3])
+        torch.cuda.synchronize()
+        launched = [k.launches - b for k, b in zip(kernels, before)]
+        want, _ = fa.flash_attention_plain(*ref, causal=True)
+        want.backward(base[3])
+        err = _max_excess(out, want, atol)
+        g_err = {n: _max_excess(a.grad, b.grad, g_atol, g_rtol)
+                 for n, a, b in zip(("dq", "dk", "dv"), ours, ref)}
+        if launched != [1, 1, 1] or err[1] > 0 or any(
+                e[1] > 0 for e in g_err.values()):
+            raise AssertionError(f"flash {dtype} D={D}: launches "
+                                 f"{launched}, out {err}, grads {g_err}")
+        q, k, v = (t.detach() for t in base[:3])
+        ms = cuda_ms([lambda: fa.flash_attention(q, k, v, causal=True)])
+        plain_ms = cuda_ms([lambda: fa.flash_attention_plain(
+            q, k, v, causal=True)], iters=5)
+        name = str(dtype).replace("torch.", "")
+        rows.append(dict(kernel="flash_fwd+bwd", dtype=name, D=D,
+                         shape=[B, S, H, D], max_abs_err=err[0],
+                         grad_err={n: e[0] for n, e in g_err.items()},
+                         tol=atol, fwd_ms=ms, fwd_plain_ms=plain_ms))
+        say(f"kernel variant flash [{B},{S},{H},{D}] {name} causal via "
+            f"SDPA + autograd: out max_abs_err {err[0]:.3g} (tol {atol}), "
+            + ", ".join(f"{n} {e[0]:.3g}" for n, e in g_err.items())
+            + f" (tol {g_atol} + {g_rtol:.4g}|x|); forward ms {ms:.4f} "
+            f"plain {plain_ms:.4f}")
+        del base, ours, ref, out, want
+
+    Bq, BS, M = 8, 16, 64
+    NB = 1 + Bq * M
+    table = (torch.randperm(NB - 1, generator=gen)[:Bq * M] + 1).reshape(
+        Bq, M).to(torch.int32).to(dev)
+    pos = torch.tensor([[M * BS - 1], [M * BS + 9], [700], [333], [64],
+                        [17], [0], [-1]], dtype=torch.int32, device=dev)
+    for dtype, D, quantized in ((torch.float16, 64, False),
+                                (torch.bfloat16, 80, False),
+                                (torch.float16, 64, True),
+                                (torch.bfloat16, 80, True)):
+        atol = tols[dtype][0]
+        Dp = 128 if D == 80 else D
+        q = torch.randn(Bq, 1, H, D, generator=gen).to(dev, dtype)
+        pools = [torch.randn(NB, BS, H, D, generator=gen).to(dev, dtype)
+                 for _ in range(2)]
+        wide = [torch.nn.functional.pad(p_, (0, Dp - D)) for p_ in pools]
+        kw, wkw = {}, {}
+        if quantized:
+            pools = [kvq.quantize_pool(p_) for p_ in pools]
+            wide = [kvq.quantize_pool(p_) for p_ in wide]
+            kw = dict(k_scale=pools[0].scale, v_scale=pools[1].scale)
+            wkw = dict(k_scale=wide[0].scale, v_scale=wide[1].scale)
+            pools, wide = [p_.data for p_ in pools], [p_.data for p_ in wide]
+        kern = pa.INT8_KERNEL if quantized else pa.KERNEL
+        before = kern.launches
+        got = pa.paged_attention(q, *wide, table, pos, block_size=BS, **wkw)
+        torch.cuda.synchronize()
+        launched = kern.launches - before
+        want = pa.paged_attention_plain(q, *pools, table, pos,
+                                        block_size=BS, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        if launched != 1 or err > atol or bool((got[-1] != 0).any()):
+            raise AssertionError(f"paged {dtype} D={D} int8={quantized}: "
+                                 f"{launched} launches, max_abs_err {err} "
+                                 f"(tol {atol})")
+        ms = cuda_ms([lambda: pa.paged_attention(q, *wide, table, pos,
+                                                 block_size=BS, **wkw)])
+        name = str(dtype).replace("torch.", "")
+        kname = "paged_attention_int8" if quantized else "paged_attention"
+        rows.append(dict(kernel=kname, dtype=name, D=D, pool_D=Dp,
+                         shape=[Bq, 1, H, D], max_abs_err=err, tol=atol,
+                         ms=ms))
+        say(f"kernel variant {kname} q [{Bq},1,{H},{D}] {name}, pools "
+            f"[{NB},{BS},{H},{Dp}]{' int8' if quantized else ''}: "
+            f"max_abs_err {err:.3g} (tol {atol}) ms {ms:.4f}")
+        del q, pools, wide, got, want
+    return rows
 
 
 def _max_excess(got, want, atol, rtol=0.0):
@@ -624,7 +796,11 @@ def _prompts(rng, lengths, vocab):
     return [rng.integers(0, vocab, size=n).astype("int32") for n in lengths]
 
 
-def phase_serve(dev):
+def phase_serve(dev, quantize: bool = False):
+    """Phase 5 (bf16) or, with ``quantize``, phase 7 (int8 weights and int8
+    KV pools): 16 requests through ServingEngine on GPT-350M; every launch
+    count is set to 0 just before the requests are driven and read just
+    after."""
     import numpy as np
     import torch
 
@@ -633,15 +809,19 @@ def phase_serve(dev):
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import paged_attention as pa
 
+    tag = "serve-int8" if quantize else "serve"
+    conf = dict(SERVE, quantize_weights=quantize, quantize_kv=quantize)
     t0 = time.perf_counter()
     cfg = GPTConfig(**GPT350M)
     model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     n_params = sum(p.numel() for p in model.parameters())
-    say(f"serve: GPT-350M bf16 ({n_params / 1e6:.1f} M parameters) built "
-        f"in {time.perf_counter() - t0:.1f} s")
+    say(f"{tag}: GPT-350M bf16 ({n_params / 1e6:.1f} M parameters) built "
+        f"in {time.perf_counter() - t0:.1f} s"
+        + ("; the engine quantizes its linears to int8 and its KV pools "
+           "to int8 with f32 scales" if quantize else ""))
     rng = np.random.default_rng(0)
     # warm-up (cuBLAS handles, allocator): one short request, not counted
-    warm = ServingEngine(model, ServingConfig(**SERVE), device=dev)
+    warm = ServingEngine(model, ServingConfig(**conf), device=dev)
     warm.submit(_prompts(rng, [130], cfg.vocab_size)[0],
                 SamplingParams(max_new_tokens=4))
     warm.run_until_done()
@@ -649,9 +829,13 @@ def phase_serve(dev):
 
     lengths = np.linspace(100, 1000, 16).astype(int)
     prompts = _prompts(rng, lengths, cfg.vocab_size)
-    eng = ServingEngine(model, ServingConfig(**SERVE), device=dev)
-    fa.KERNEL.launches = 0
-    pa.KERNEL.launches = 0
+    eng = ServingEngine(model, ServingConfig(**conf), device=dev)
+    if quantize:
+        del model  # the engine serves its own int8 copy
+    kernels = {"flash_fwd": fa.KERNEL, "paged_attention": pa.KERNEL,
+               "paged_attention_int8": pa.INT8_KERNEL}
+    for kern in kernels.values():
+        kern.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -660,8 +844,7 @@ def phase_serve(dev):
     eng.run_until_done()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": fa.KERNEL.launches,
-                "paged_attention": pa.KERNEL.launches}
+    launches = {n: kern.launches for n, kern in kernels.items()}
     m = eng.metrics
     for rid in rids:
         req = eng.request(rid)
@@ -671,34 +854,42 @@ def phase_serve(dev):
                                  f"{out.size} tokens ({req.error})")
         if out.min() < 0 or out.max() >= cfg.vocab_size:
             raise AssertionError(f"request {rid}: token out of range")
-    if launches["flash_fwd"] == 0 or launches["paged_attention"] == 0:
+    if m.requests_finished.value != len(prompts):
+        raise AssertionError(f"{m.requests_finished.value} of "
+                             f"{len(prompts)} requests finished")
+    paged = "paged_attention_int8" if quantize else "paged_attention"
+    want = {"flash_fwd": cfg.num_layers * m.prefills.value,  # buckets >= 128
+            "paged_attention": 0, "paged_attention_int8": 0}
+    want[paged] = cfg.num_layers * m.decode_steps.value
+    if launches["flash_fwd"] == 0 or launches[paged] == 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
-    want_flash = cfg.num_layers * m.prefills.value  # every bucket >= 128
-    want_paged = cfg.num_layers * m.decode_steps.value
-    if launches != {"flash_fwd": want_flash, "paged_attention": want_paged}:
-        raise AssertionError(f"launches {launches}, expected flash "
-                             f"{want_flash} and paged {want_paged}")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
     summary = m.summary_dict()
     for L, h in summary["prefill_s"].items():
-        say(f"serve: prefill bucket {L}: {h['count']} prefills, mean "
+        say(f"{tag}: prefill bucket {L}: {h['count']} prefills, mean "
             f"{h['mean'] * 1e3:.3f} ms, max {h['max'] * 1e3:.3f} ms")
     dec = summary["decode_step_s"]
     decode_tokens = m.tokens_emitted.value - m.prefills.value
     decode_s = m.decode_step_s.sum
-    say(f"serve: {m.decode_steps.value} decode steps, mean "
+    say(f"{tag}: {m.decode_steps.value} decode steps, mean "
         f"{dec['mean'] * 1e3:.3f} ms, p50 {dec['p50'] * 1e3:.3f} ms, p99 "
         f"{dec['p99'] * 1e3:.3f} ms; decode {decode_tokens / decode_s:.1f} "
         f"tokens/s; {m.tokens_emitted.value} tokens in {wall:.2f} s "
         f"({m.tokens_emitted.value / wall:.1f} tokens/s end to end)")
     ttft, gap = summary["ttft_s"], summary["inter_token_s"]
-    say(f"serve: {m.requests_submitted.value} requests sent, "
+    say(f"{tag}: {m.requests_submitted.value} requests sent, "
         f"{m.requests_finished.value} finished, {m.requests_failed.value} "
         f"failed; ttft p50 {ttft['p50'] * 1e3:.1f} ms max "
         f"{ttft['max'] * 1e3:.1f} ms; inter-token p50 "
         f"{gap['p50'] * 1e3:.2f} ms p99 {gap['p99'] * 1e3:.2f} ms")
-    say(f"serve: launches during serving {launches} (flash: 24 per "
-        f"prefill, paged: 24 per decode step); peak memory "
+    if quantize:
+        say(f"{tag}: kv_quant_bytes_saved {m.kv_quant_bytes_saved.value} "
+            f"(against the bf16 pools), weight_quant_bytes_saved "
+            f"{m.weight_quant_bytes_saved.value} (against f32 weights)")
+    say(f"{tag}: launches during serving {launches} (flash: 24 per "
+        f"prefill, {paged}: 24 per decode step); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches, summary
 
@@ -732,6 +923,62 @@ def phase_parity(dev):
         f"streams of {new} tokens (prompts {[p.size for p in prompts]})")
 
 
+def phase_quant_parity(dev):
+    """A 2-layer GPT-350M-width model in fp32 with TF32 off, the same
+    weights on the card and on the CPU, each behind a quantized engine:
+    the greedy streams must be identical, and the int8-weight models'
+    logits over the prompts and their completions must agree within
+    QPARITY_RTOL of the largest |logit|."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import (GPTConfig, GPTForCausalLM, SamplingParams,
+                                  ServingConfig, ServingEngine)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GPTConfig(**dict(GPT350M, num_layers=2))
+    prompts = _prompts(np.random.default_rng(2), [150, 333, 700],
+                       cfg.vocab_size)
+    new = 16
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        model = GPTForCausalLM(cfg, device=where, dtype=torch.float32,
+                               seed=2)
+        eng = ServingEngine(model, ServingConfig(
+            **SERVE, quantize_weights=True, quantize_kv=True), device=where)
+        rids = [eng.submit(p, SamplingParams(max_new_tokens=new))
+                for p in prompts]
+        eng.run_until_done()
+        streams = [eng.output(r) for r in rids]
+        with torch.inference_mode():
+            logits = [eng.model(torch.from_numpy(
+                eng.full_output(r)[None].astype(np.int64)).to(where))[0]
+                .cpu() for r in rids]
+            fp = [model(torch.from_numpy(
+                eng.full_output(r)[None].astype(np.int64)).to(where))[0]
+                .cpu() for r in rids]
+        drift = max((a - b).abs().max().item() for a, b in zip(logits, fp))
+        eng.note_logit_drift(drift)
+        runs.append((streams, logits, eng.metrics.quant_logit_drift_max.value))
+        del model, eng
+    (s_gpu, l_gpu, d_gpu), (s_cpu, l_cpu, d_cpu) = runs
+    for i, (a, b) in enumerate(zip(s_gpu, s_cpu)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"quant parity: request {i}: card "
+                                 f"{a.tolist()} != cpu {b.tolist()}")
+    top = max(x.abs().max().item() for x in l_cpu)
+    err = max((a - b).abs().max().item() for a, b in zip(l_gpu, l_cpu))
+    say(f"quant parity: fp32 2-layer GPT-350M width, int8 weights and KV: "
+        f"card == cpu greedy streams for {len(prompts)} requests of {new} "
+        f"tokens (prompts {[p.size for p in prompts]}); logits max abs "
+        f"diff {err:.3g} against largest |logit| {top:.3g} (tol "
+        f"{QPARITY_RTOL} of it); int8-vs-fp logit drift card {d_gpu:.4g} "
+        f"cpu {d_cpu:.4g}")
+    if err > QPARITY_RTOL * top:
+        raise AssertionError("quant parity: card and CPU logits disagree")
+
+
 def main() -> int:
     global TAG
     try:
@@ -759,11 +1006,14 @@ def main() -> int:
     try:
         phase_build()
         kernels = phase_kernels(dev)
+        variants = phase_variant_kernels(dev)
         kernels.update(phase_train_kernels(dev))
         train_launches, _ = phase_train(dev)
         phase_train_parity(dev)
         launches, _ = phase_serve(dev)
         phase_parity(dev)
+        q_launches, _ = phase_serve(dev, quantize=True)
+        phase_quant_parity(dev)
     except Exception:
         traceback.print_exc()
         say("FAILED")
@@ -771,6 +1021,7 @@ def main() -> int:
     say(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     fd = kernels["fwd_dropout"]
     p = kernels["paged_attention"][0]
+    p8 = kernels["paged_attention_int8"][0]
     flash_errs = [r["max_abs_err"] for r in kernels["flash_fwd"]] + [
         fd["max_abs_err"], kernels["fwd_window"]["max_abs_err"]]
 
@@ -784,20 +1035,25 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
 
-    # flash_fwd: launches in both paths; times at the training shape
+    # flash_fwd: launches in every path; times at the training shape.
+    # "variants": the fp16 and head-dim-80 checks of phase 2.
     summary = {"card": card, "kernels": [
         dict(row("flash_fwd", "flash_fwd.cu", "flash_attention.py:155",
-                 launches["flash_fwd"] + train_launches["flash_fwd"], fd,
-                 max(flash_errs)),
+                 launches["flash_fwd"] + train_launches["flash_fwd"]
+                 + q_launches["flash_fwd"], fd, max(flash_errs)),
              launches_by_path={"serve": launches["flash_fwd"],
-                               "train": train_launches["flash_fwd"]}),
+                               "train": train_launches["flash_fwd"],
+                               "serve_int8": q_launches["flash_fwd"]}),
         row("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:272",
             train_launches["flash_bwd_dkv"], kernels["dkv"]),
         row("flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:318",
             train_launches["flash_bwd_dq"], kernels["dq"]),
         row("paged_attention", "paged_attention.cu",
             "paged_attention.py:151", launches["paged_attention"], p),
-    ]}
+        dict(row("paged_attention_int8", "paged_attention.cu",
+                 "paged_attention.py:151", q_launches["paged_attention_int8"],
+                 p8), branch="quantized=True (dequant at :185-187)"),
+    ], "variants": variants}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

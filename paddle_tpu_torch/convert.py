@@ -9,6 +9,10 @@ parameter names already agree.
 
     sd = {k: v.numpy() for k, v in jax_model.state_dict().items()}
     port_model.load_state_dict(from_jax_state(sd, port_model))
+
+Quantized leaves carry too, for comparing payloads: the JAX package's
+``QuantizedLinear`` (int8 [in, out], f32 [1, out]) and ``QuantizedKV``
+(int8 [NB, BS, H, D], f32 [NB, BS, H, 1]), as numpy ``data``/``scale``.
 """
 from __future__ import annotations
 
@@ -18,7 +22,10 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["from_jax_state", "to_jax_layout"]
+from .quantization.kv import QuantizedKV
+
+__all__ = ["from_jax_state", "quantized_kv_from_jax",
+           "quantized_linear_from_jax", "to_jax_layout"]
 
 
 def _transposed(model: nn.Module):
@@ -52,3 +59,17 @@ def to_jax_layout(tensors: Mapping[str, torch.Tensor],
     return {name: (t.detach().cpu().numpy().T if is_linear(name)
                    else t.detach().cpu().numpy())
             for name, t in tensors.items()}
+
+
+def quantized_linear_from_jax(data, scale):
+    """A JAX ``QuantizedLinear``'s payload and scales ([in, out], [1, out])
+    -> the port's ([out, in] int8, [out, 1] f32) CPU tensors."""
+    return (torch.from_numpy(np.ascontiguousarray(np.asarray(data).T)),
+            torch.from_numpy(np.ascontiguousarray(np.asarray(scale).T)))
+
+
+def quantized_kv_from_jax(data, scale) -> QuantizedKV:
+    """A JAX ``QuantizedKV``'s payload and scales -> a port ``QuantizedKV``
+    of CPU tensors (the layouts agree)."""
+    return QuantizedKV(torch.from_numpy(np.array(data)),
+                       torch.from_numpy(np.array(scale)))

@@ -27,10 +27,11 @@
 // reads them as float4 rows), and tiles outside the causal / window band
 // are never loaded. Tensor cores (mma/wgmma) are the next step.
 //
-// Layout: q, dout [B, Sq, H, D]; k, v [B, Sk, H, D] (contiguous, one dtype);
-// kv_bias [B, Sk] f32 or null; lse, delta [B, H, Sq] f32; dq like q, dk and
-// dv like k. kv_bias takes no gradient. Rows whose every entry is masked
-// have lse = NEG_INF in the forward and give zero gradients here.
+// Layout: q, dout [B, Sq, H, D]; k, v [B, Sk, H, D] (contiguous, one dtype:
+// f32, bf16 or f16); kv_bias [B, Sk] f32 or null; lse, delta [B, H, Sq] f32;
+// dq like q, dk and dv like k. kv_bias takes no gradient. Rows whose every
+// entry is masked have lse = NEG_INF in the forward and give zero gradients
+// here.
 //
 // Grid: (ceil(Sk / 64) for dkv or ceil(Sq / 64) for dq, H, B); 128 threads.
 // Thread t computes the s / dP entries (rows r + 16i, cols c + 8j) with
@@ -430,13 +431,14 @@ int run(bool dkv, const Args& a, int D, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::DTYPE_F32) return dispatch<float>(dkv, D, a, s);
   if (dtype == ptt::DTYPE_BF16) return dispatch<__nv_bfloat16>(dkv, D, a, s);
+  if (dtype == ptt::DTYPE_F16) return dispatch<__half>(dkv, D, a, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// C interface for ctypes. dtype: 0 = f32, 1 = bf16; kv_bias may be null;
-// window and dropout as for flash_fwd. Each returns cudaGetLastError()
+// C interface for ctypes. dtype: 0 = f32, 1 = bf16, 2 = f16; kv_bias may be
+// null; window and dropout as for flash_fwd. Each returns cudaGetLastError()
 // after its launch (0 on success).
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* kv_bias, const void* dout,

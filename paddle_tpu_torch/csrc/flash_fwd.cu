@@ -23,9 +23,11 @@
 // are bound the same way: 25.8 GFLOP per call against 100 MB of traffic.
 //
 // Layout: q [B, Sq, H, D], k/v [B, Sk, H, D] (contiguous), kv_bias [B, Sk]
-// f32 or null, out like q, lse [B, H, Sq] f32. A row whose every entry is
+// f32 or null, out like q, lse [B, H, Sq] f32; q, k, v and out are f32,
+// bf16 or f16, statistics f32 in every case. A row whose every entry is
 // masked (outside the causal band, past Sk, or with a -inf bias) gives zeros
-// and lse = NEG_INF, as the TPU kernel does.
+// and lse = NEG_INF. The TPU kernel differs there: its finite -1e30 sentinel
+// turns such a row into a uniform average over the columns it visited.
 //
 // Grid: (ceil(Sq / 64), H, B); 128 threads. Thread t owns rows r + 16i
 // (r = t / 8, i < 4) of the q tile, score columns c + 8j (c = t % 8, j < 8)
@@ -242,7 +244,8 @@ cudaError_t dispatch_d(int D, const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// C interface for ctypes. dtype: 0 = f32, 1 = bf16; kv_bias may be null.
+// C interface for ctypes. dtype: 0 = f32, 1 = bf16, 2 = f16; kv_bias may be
+// null.
 // window: 0, or the sliding-window band (needs causal). dropout: 0 = off,
 // else keep an entry when its hash is >= thresh and scale it by inv_keep.
 // Returns cudaGetLastError() after the launch (0 on success).
@@ -257,5 +260,6 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
          seed, Dropout{dropout, thresh, inv_keep, 0u}};
   if (dtype == ptt::DTYPE_F32) return dispatch_d<float>(D, a, s);
   if (dtype == ptt::DTYPE_BF16) return dispatch_d<__nv_bfloat16>(D, a, s);
+  if (dtype == ptt::DTYPE_F16) return dispatch_d<__half>(D, a, s);
   return cudaErrorInvalidValue;
 }

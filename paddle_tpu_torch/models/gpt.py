@@ -7,7 +7,9 @@ flash kernel from 128 tokens up); the paged decode step goes through the
 paged-attention kernel.
 
 Weights follow PyTorch's layout (linears [out, in]); ``convert.py`` carries
-a ``paddle_tpu`` state dict over. Random weights come from a seed.
+a ``paddle_tpu`` state dict over. Random weights come from a seed. The
+paged pools may be fp or int8 with scales (``quantization/kv.py``), and the
+linears may be int8 (``quantization/weights.py``).
 """
 from __future__ import annotations
 
@@ -23,8 +25,9 @@ from ..framework.device import resolve_device
 from ..nn import functional as F
 from ..nn.layers import (ColumnParallelLinear, RowParallelLinear,
                          VocabParallelEmbedding)
+from ..ops._cuda import padded_head_dim
 from ..ops.paged_attention import paged_attention
-from ..serving import kv_pool
+from ..quantization import kv as kvq
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM"]
 
@@ -154,19 +157,28 @@ class GPTAttention(nn.Module):
         block table.
 
         x [S, s, hidden]; k_pool/v_pool [num_blocks, block_size, H, D]
-        (updated in place: the new rows' KV goes to rows.blk / rows.off);
-        block_table [S, M] int32 (tail -> null block 0); rows from
-        ``paged_rows``. Row j of slot i attends columns [0 .. pos[i, j]].
+        fp pools or ``QuantizedKV`` (updated in place: the new rows' KV
+        goes to rows.blk / rows.off, quantized per row for a quantized
+        pool); block_table [S, M] int32 (tail -> null block 0); rows from
+        ``paged_rows``. Row j of slot i attends columns [0 .. pos[i, j]],
+        through the int8 branch of the paged kernel for a quantized pool.
         Returns (out [S, s, hidden], k_pool, v_pool)."""
         b, s = x.shape[0], x.shape[1]
         q, k, v = self._qkv(x)
         if self.rope:
             q = _apply_rope(q, rows.pos, self.rope_theta)
             k = _apply_rope(k, rows.pos, self.rope_theta)
-        kv_pool.write_rows(k_pool, rows.blk, rows.off, k)
-        kv_pool.write_rows(v_pool, rows.blk, rows.off, v)
-        out = paged_attention(q.contiguous(), k_pool, v_pool, block_table,
-                              rows.pos, block_size=block_size)
+        kvq.write_rows(k_pool, rows.blk, rows.off, k)
+        kvq.write_rows(v_pool, rows.blk, rows.off, v)
+        if kvq.is_quantized(k_pool):
+            out = paged_attention(q.contiguous(), k_pool.data, v_pool.data,
+                                  block_table, rows.pos,
+                                  block_size=block_size,
+                                  k_scale=k_pool.scale, v_scale=v_pool.scale)
+        else:
+            out = paged_attention(q.contiguous(), k_pool, v_pool,
+                                  block_table, rows.pos,
+                                  block_size=block_size)
         out = self.proj(out.reshape(b, s, self.num_heads * self.head_dim))
         return out, k_pool, v_pool
 
@@ -254,12 +266,15 @@ class GPTModel(nn.Module):
                 for _ in range(self.cfg.num_layers)]
 
     def init_kv_pools(self, num_blocks: int, block_size: int):
-        """Per-layer paged KV pools [num_blocks, block_size, H, D] in the
-        model's dtype, on its device. Block 0 is the reserved null block:
+        """Per-layer paged KV pools [num_blocks, block_size, H, Dp] in the
+        model's dtype, on its device, all zeros. Dp is the head dim, or the
+        next one the paged kernel is built for (the extra columns stay
+        zero: writes pad the rows). Block 0 is the reserved null block:
         idle slots and padded table tails address it; it is never
         allocated to a sequence. Returns (k_pools, v_pools)."""
         w = self._param()
-        shape = self._kv_shape((num_blocks, block_size))
+        *lead, d = self._kv_shape((num_blocks, block_size))
+        shape = (*lead, padded_head_dim(d))
 
         def pools():
             return [torch.zeros(shape, dtype=w.dtype, device=w.device)

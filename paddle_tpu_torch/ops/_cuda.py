@@ -26,7 +26,7 @@ from typing import Dict, List, Sequence
 import torch
 
 __all__ = ["CudaKernel", "build_all", "KERNEL_SOURCES", "DTYPE_CODES",
-           "HEAD_DIMS"]
+           "HEAD_DIMS", "padded_head_dim"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
@@ -35,9 +35,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: every kernel source of the package, in build order
 KERNEL_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "paged_attention.cu")
 #: element types the kernels take, by the codes of csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: head dims the kernels are instantiated for
 HEAD_DIMS = (32, 64, 128)
+
+
+def padded_head_dim(d: int) -> int:
+    """The smallest instantiated head dim that holds ``d`` (``d`` itself
+    when it is one, or larger than all of them). Callers zero-pad to it:
+    zero columns add nothing to q.k or to p.v."""
+    return next((h for h in HEAD_DIMS if h >= d), d)
 
 
 def _nvcc() -> str:

@@ -11,7 +11,9 @@ backward regenerates the forward's mask and kernel, plain version and JAX
 package draw the same mask bit for bit. ``window`` (with ``causal``) lets
 row r see columns [r - window, r]. The TPU wrapper's block picking and
 ragged-tail padding have no counterpart here: the kernels' 64-row tiles
-mask the ragged edge in place.
+mask the ragged edge in place. A head dim the kernels are not built for
+(up to 128) is zero-padded to the next one by ``flash_attention``, at the
+unpadded scale, and the results are sliced back.
 
 ``flash_attention_fwd`` / ``flash_attention_bwd`` launch the kernels for
 CUDA tensors and take the plain versions for CPU tensors; there is no
@@ -26,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ._cuda import DTYPE_CODES, HEAD_DIMS, CudaKernel
+from ._cuda import DTYPE_CODES, HEAD_DIMS, CudaKernel, padded_head_dim
 
 __all__ = ["NEG_INF", "FlashAttentionFunction", "dropout_keep",
            "flash_attention", "flash_attention_bwd",
@@ -52,13 +54,16 @@ _M32 = 0xFFFFFFFF
 
 def flash_attention_supported(q_shape, k_shape, causal: bool = False) -> bool:
     """Shape gate for the kernel path (else callers use the plain masked
-    softmax of ops/attention.py) — the same gate as the TPU package's:
-    sequences of at least 128 on both sides, and square when causal."""
+    softmax of ops/attention.py) — the TPU package's gate: sequences of at
+    least 128 on both sides, and square when causal; head dims up to the
+    largest the kernels are built for (the TPU gate takes up to 512; above
+    128 the port takes the plain path, as the TPU package takes XLA's above
+    512)."""
     Sq, D = q_shape[1], q_shape[3]
     Sk = k_shape[1]
     if Sq < 128 or Sk < 128:
         return False
-    if D > 512:
+    if D > max(HEAD_DIMS):
         return False
     if causal and Sq != Sk:
         return False
@@ -227,7 +232,7 @@ def _kernel_checks(q, k, kv_bias, causal, named):
     Sq, Sk, D = q.shape[1], k.shape[1], q.shape[3]
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"flash attention kernel: dtype {q.dtype} "
-                         "(takes float32 or bfloat16)")
+                         "(takes float32, bfloat16 or float16)")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash attention kernel: head_dim {D} "
                          f"(takes {HEAD_DIMS})")
@@ -381,7 +386,21 @@ def flash_attention(q, k, v, kv_bias=None, causal: bool = False,
     ``dropout_p`` / ``dropout_seed``: attention-probability dropout inside
     the kernel, regenerated from the seed (a host int) in backward.
     ``window_size``: sliding-window attention, row r sees [r - w, r];
-    needs ``causal`` and w >= 1. Differentiable in q, k and v."""
+    needs ``causal`` and w >= 1. Differentiable in q, k and v. A head dim
+    D that is not one of ``HEAD_DIMS`` but below the largest goes in
+    zero-padded to the next one: the zero columns add nothing to q.k, the
+    scale stays 1 / sqrt(D), and the output (and through autograd dq, dk,
+    dv) is sliced back to D."""
+    D = q.shape[-1]
+    Dp = padded_head_dim(D)
+    if Dp != D:
+        pad = (0, Dp - D)
+        out = flash_attention(
+            torch.nn.functional.pad(q, pad), torch.nn.functional.pad(k, pad),
+            torch.nn.functional.pad(v, pad), kv_bias, causal,
+            1.0 / math.sqrt(D) if scale is None else scale, dropout_p,
+            dropout_seed, window_size)
+        return out[..., :D]
     if window_size is not None:
         if not causal:
             raise ValueError("window_size (sliding-window attention) "

@@ -23,11 +23,20 @@ solo ``generate`` call's.
 
 Unlike the JAX engine, which threads new pools through a pure function,
 this engine updates its KV pools IN PLACE: every write lands in the
-tensors ``init_kv_pools`` allocated. Writes of padding rows and idle slots
-go to the reserved null block 0 (see serving/kv_pool.py).
+tensors ``init_kv_pools`` allocated (or their int8 conversion). Writes of
+padding rows and idle slots go to the reserved null block 0 (see
+quantization/kv.py).
+
+Quantized serving (``quantize_weights``, ``quantize_kv``): at build, before
+the first step, the engine swaps the linears of its own copy of the model
+for int8 ones (per-out-channel scales, dequantized on use) and converts its
+KV pools to int8 with per-row scales. Prefill still attends its contiguous
+fp KV and then scatters it, quantized, into the pool; decode reads the int8
+pools through the int8 branch of the paged-attention kernel.
 """
 from __future__ import annotations
 
+import copy
 import time
 from collections import deque
 from typing import Dict, Iterator, List, NamedTuple, Optional
@@ -40,7 +49,8 @@ from ..framework import random as fw_random
 from ..framework.device import resolve_device
 from ..ops import flash_attention as _flash
 from ..ops import paged_attention as _paged
-from . import kv_pool
+from ..quantization import kv as kvq
+from ..quantization.weights import quantize_linears, quantized_bytes_saved
 from .errors import QueueFull, RequestError
 from .kv_block import KVBlockManager
 from .metrics import ServingMetrics
@@ -58,7 +68,9 @@ class ServingConfig:
                  num_blocks: int = 64,
                  max_blocks_per_seq: Optional[int] = None,
                  max_queue: Optional[int] = None,
-                 prefill_buckets: Optional[List[int]] = None):
+                 prefill_buckets: Optional[List[int]] = None,
+                 quantize_weights: bool = False,
+                 quantize_kv: bool = False):
         self.num_slots = int(num_slots)
         self.block_size = int(block_size)
         self.num_blocks = int(num_blocks)
@@ -73,6 +85,12 @@ class ServingConfig:
         # geometric ladder up to the per-sequence capacity
         self.prefill_buckets = (None if prefill_buckets is None
                                 else [int(b) for b in prefill_buckets])
+        # int8 per-out-channel linear weights, dequantized on use (the
+        # engine quantizes its own copy of the model)
+        self.quantize_weights = bool(quantize_weights)
+        # int8 paged-KV pools with per-row absmax scales in a side pool;
+        # decode reads them through the paged kernel's int8 branch
+        self.quantize_kv = bool(quantize_kv)
 
 
 class TokenEvent(NamedTuple):
@@ -88,7 +106,6 @@ class ServingEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}")
-        self.model = model
         self.config = c = config or ServingConfig()
         model.eval()
         self._mcfg = model.gpt.cfg
@@ -97,6 +114,23 @@ class ServingEngine:
         self.scheduler = Scheduler(self.blocks, c.num_slots)
         self._kpools, self._vpools = model.gpt.init_kv_pools(
             c.num_blocks, c.block_size)
+        # quantized serving: once, here, before the first step; the
+        # counters record the bytes the int8 layouts free (KV: against
+        # the fp pools; weights: against f32, as the JAX engine counts)
+        if c.quantize_kv:
+            fp_bytes = sum(kvq.pool_bytes(p)
+                           for p in self._kpools + self._vpools)
+            self._kpools = [kvq.quantize_pool(p) for p in self._kpools]
+            self._vpools = [kvq.quantize_pool(p) for p in self._vpools]
+            saved = fp_bytes - sum(kvq.pool_bytes(p)
+                                   for p in self._kpools + self._vpools)
+            self.metrics.kv_quant_bytes_saved.inc(max(0, saved))
+        if c.quantize_weights:
+            model = copy.deepcopy(model)
+            quantize_linears(model)
+            self.metrics.weight_quant_bytes_saved.inc(
+                quantized_bytes_saved(model))
+        self.model = model
         self._requests: Dict[int, Request] = {}
         self._next_id = 0
         self._done_ids = deque()  # terminal req ids, retirement order
@@ -145,6 +179,12 @@ class ServingEngine:
         self.metrics.requests_submitted.inc()
         return req.req_id
 
+    def note_logit_drift(self, drift: float) -> None:
+        """Record an observed |quantized - fp32| logit drift (checks report
+        theirs here); the gauge keeps the worst value seen."""
+        g = self.metrics.quant_logit_drift_max
+        g.set(max(float(g.value), float(drift)))
+
     def has_work(self) -> bool:
         return self.scheduler.has_work()
 
@@ -166,6 +206,8 @@ class ServingEngine:
             events.extend(self._decode_once())
         self.metrics.flash_fwd_launches.set(_flash.KERNEL.launches)
         self.metrics.paged_attention_launches.set(_paged.KERNEL.launches)
+        self.metrics.paged_attention_int8_launches.set(
+            _paged.INT8_KERNEL.launches)
         return events
 
     def run_until_done(self) -> List[TokenEvent]:
@@ -258,7 +300,7 @@ class ServingEngine:
                 val = caches[i][kv][0]  # [L, H, D]
                 if pad:
                     val = torch.nn.functional.pad(val, (0, 0, 0, 0, 0, pad))
-                kv_pool.set_block_rows(
+                kvq.set_block_rows(
                     pools[i], table,
                     val.reshape(nblk, c.block_size, *val.shape[1:]))
         return self.model.forward_head(h[:, S - 1:S])[:, -1].float()

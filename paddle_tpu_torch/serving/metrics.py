@@ -74,11 +74,20 @@ class ServingMetrics:
         # prompts longer than the largest bucket take the exact-length
         # path; a growing number means the bucket set is too small
         self.prefill_fallbacks = Counter("prefill_fallbacks")
-        # process-wide launches of the two attention kernels, read after
+        # process-wide launches of the attention kernels, read after
         # every engine step (they stay 0 on the CPU, where the plain
         # versions run)
         self.flash_fwd_launches = Gauge("flash_fwd_launches")
         self.paged_attention_launches = Gauge("paged_attention_launches")
+        self.paged_attention_int8_launches = Gauge(
+            "paged_attention_int8_launches")
+        # quantized serving: device bytes the int8 layouts freed, recorded
+        # once at engine build (0 while quantization is off), and the
+        # worst |quantized - fp32| logit drift a check has reported
+        # (ServingEngine.note_logit_drift)
+        self.kv_quant_bytes_saved = Counter("kv_quant_bytes_saved")
+        self.weight_quant_bytes_saved = Counter("weight_quant_bytes_saved")
+        self.quant_logit_drift_max = Gauge("quant_logit_drift_max")
 
     def observe_prefill(self, bucket: int, seconds: float) -> None:
         h = self.prefill_s.get(bucket)

@@ -8,21 +8,28 @@ also runs where JAX is not installed:
 
 Tolerances: f32 inputs differ from the plain version only in summation
 order (1e-5); bf16 outputs may differ by one bf16 rounding step (2^-6 for
-|x| < 4, and attention outputs are convex sums of N(0, 1) values); lse is
-f32 on both sides (1e-4). Gradients: f32 1e-4 (three products deep, each
-summed in another order), bf16 one bf16 step of the value (rtol 2^-7)
-plus 1.6e-2. Dropout masks are integer hashes: bit-identical.
+|x| < 4, and attention outputs are convex sums of N(0, 1) values), f16
+outputs by one f16 step (2^-9 for |x| < 4, so 2e-3); lse is f32 on both
+sides (1e-4). Gradients: f32 1e-4 (three products deep, each summed in
+another order), bf16 one bf16 step of the value (rtol 2^-7) plus 1.6e-2,
+f16 one f16 step (rtol 2^-10) plus 4e-3. Dropout masks are integer
+hashes: bit-identical. The int8 paged branch dequantizes the same int8
+payloads and f32 scales on both sides, so it takes the fp tolerances of
+q's dtype.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.nn import functional as tF
 from paddle_tpu_torch.ops import flash_attention as tfa
 from paddle_tpu_torch.ops import paged_attention as tpa
+from paddle_tpu_torch.quantization import kv as tkv
 
 torch.set_num_threads(1)
 
-TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 1.6e-2)]
+TOLS = [(torch.float32, 1e-5), (torch.bfloat16, 1.6e-2),
+        (torch.float16, 2e-3)]
 
 
 @pytest.fixture
@@ -94,7 +101,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(1, 128, 2, 48, device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention_fwd(q, q, q, causal=True)
-    q = torch.zeros(1, 128, 2, 64, device=cuda_device, dtype=torch.float16)
+    q = torch.zeros(1, 128, 2, 64, device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError, match="dtype"):
         tfa.flash_attention_fwd(q, q, q, causal=True)
     q = torch.zeros(2, 1, 2, 64, device=cuda_device)
@@ -103,6 +110,116 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     pos = torch.zeros(2, 1, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="int32"):
         tpa.paged_attention(q, pool, pool, table, pos, block_size=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", TOLS)
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("D,BS", [(32, 4), (64, 16), (128, 32)])
+def test_int8_paged_kernel_matches_plain(cuda_device, dtype, atol, s, D, BS):
+    """The int8 branch: pools quantized per row (absmax over D) with f32
+    scales; a row that overruns the table, a null-block tail, a pos = -1
+    row that must come out as zeros."""
+    rng = np.random.default_rng(100 + s + D)
+    B, H, NB, M = 4, 4, 40, 8
+    q = torch.from_numpy(rng.standard_normal((B, s, H, D)).astype(
+        np.float32)).to(cuda_device, dtype)
+    kq, vq = (tkv.quantize_pool(torch.from_numpy(rng.standard_normal(
+        (NB, BS, H, D)).astype(np.float32)).to(cuda_device))
+        for _ in range(2))
+    table = rng.integers(1, NB, (B, M)).astype(np.int32)
+    table[2, 5:] = 0
+    start = np.array([M * BS - 2, 3 * BS + 1, 2 * BS, 0])
+    pos = (start[:, None] + np.arange(s)[None, :]).astype(np.int32)
+    pos[3, -1] = -1
+    args = (q, kq.data, vq.data, torch.from_numpy(table).to(cuda_device),
+            torch.from_numpy(pos).to(cuda_device))
+    kw = dict(block_size=BS, k_scale=kq.scale, v_scale=vq.scale)
+    before = (tpa.KERNEL.launches, tpa.INT8_KERNEL.launches)
+    got = tpa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert (tpa.KERNEL.launches, tpa.INT8_KERNEL.launches) == (
+        before[0], before[1] + 1)
+    want = tpa.paged_attention_plain(*args, **kw)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert bool((got[3, -1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 80),
+                                     (torch.bfloat16, 80),
+                                     (torch.float16, 64),
+                                     (torch.float16, 80)])
+def test_sdpa_takes_head_dim_80_and_fp16_through_the_kernels(
+        cuda_device, dtype, D):
+    """scaled_dot_product_attention at S = 200, causal: D = 80 runs the
+    kernels zero-padded to 128 at the scale 1 / sqrt(80), fp16 runs their
+    f16 instantiation; forward and backward against the plain version
+    under autograd."""
+    atol, g_atol, g_rtol = {torch.float32: (1e-5, 1e-4, 0.0),
+                            torch.bfloat16: (1.6e-2, 1.6e-2, 2.0 ** -7),
+                            torch.float16: (2e-3, 4e-3, 2.0 ** -10)}[dtype]
+    rng = np.random.default_rng(D)
+    base = [torch.from_numpy(rng.standard_normal((2, 200, 4, D)).astype(
+        np.float32)).to(cuda_device, dtype) for _ in range(4)]
+    do = base[3]
+    ours = [t.clone().requires_grad_(True) for t in base[:3]]
+    ref = [t.clone().requires_grad_(True) for t in base[:3]]
+    kernels = (tfa.KERNEL, tfa.DKV_KERNEL, tfa.DQ_KERNEL)
+    before = [k.launches for k in kernels]
+    out = tF.scaled_dot_product_attention(*ours, is_causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
+    want, _ = tfa.flash_attention_plain(*ref, causal=True)
+    want.backward(do)
+    assert out.shape == want.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
+    for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
+        torch.testing.assert_close(a.grad.float(), b.grad.float(),
+                                   atol=g_atol, rtol=g_rtol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,quantized", [
+    (torch.bfloat16, 80, False), (torch.bfloat16, 80, True),
+    (torch.float16, 64, False), (torch.float16, 80, True)])
+def test_paged_takes_head_dim_80_and_fp16(cuda_device, dtype, D, quantized):
+    """Pools as the model allocates them for D = 80 (at 128, the extra
+    columns zero), fp or int8, and f16 queries: the kernel against the
+    plain version over the unpadded pools."""
+    atol = {torch.bfloat16: 1.6e-2, torch.float16: 2e-3}[dtype]
+    rng = np.random.default_rng(D + quantized)
+    B, H, NB, M, BS = 4, 4, 40, 8, 16
+    Dp = 128 if D == 80 else D
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, D)).astype(
+        np.float32)).to(cuda_device, dtype)
+    pools = [torch.from_numpy(rng.standard_normal((NB, BS, H, D)).astype(
+        np.float32)).to(cuda_device, dtype) for _ in range(2)]
+    wide = [torch.nn.functional.pad(p, (0, Dp - D)) for p in pools]
+    kw, wkw = {}, {}
+    if quantized:
+        pools = [tkv.quantize_pool(p) for p in pools]
+        wide = [tkv.quantize_pool(p) for p in wide]
+        kw = dict(k_scale=pools[0].scale, v_scale=pools[1].scale)
+        wkw = dict(k_scale=wide[0].scale, v_scale=wide[1].scale)
+        pools = [p.data for p in pools]
+        wide = [p.data for p in wide]
+    table = torch.from_numpy(rng.integers(1, NB, (B, M)).astype(
+        np.int32)).to(cuda_device)
+    pos = torch.tensor([[M * BS - 1], [40], [3], [-1]], dtype=torch.int32,
+                       device=cuda_device)
+    kern = tpa.INT8_KERNEL if quantized else tpa.KERNEL
+    before = kern.launches
+    got = tpa.paged_attention(q, *wide, table, pos, block_size=BS, **wkw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    want = tpa.paged_attention_plain(q, *pools, table, pos, block_size=BS,
+                                     **kw)
+    assert got.shape == q.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert bool((got[3] == 0).all())
 
 
 BWD_TOLS = [(torch.float32, 1e-4, 0.0), (torch.bfloat16, 1.6e-2, 2.0 ** -7)]

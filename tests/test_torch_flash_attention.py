@@ -128,3 +128,33 @@ def test_supported_gate_matches_jax():
                            ((1, 256, 2, 64), (1, 128, 2, 64), False)):
         assert (tfa.flash_attention_supported(qs, ks, causal)
                 == jfa.flash_attention_supported(qs, ks, causal))
+
+
+@pytest.mark.parametrize("D", [48, 80])
+def test_head_dim_outside_the_kernels_pads_at_the_unpadded_scale(D):
+    """flash_attention zero-pads a head dim the kernels are not built for
+    to the next one (48 -> 64, 80 -> 128), keeps the scale 1 / sqrt(D) and
+    slices the output back: the plain version over the padded inputs
+    equals the plain versions over the unpadded ones (the autograd
+    function's plain forward and backward called at D itself), forward
+    and backward (the zero columns add exact zeros; the products are
+    summed over more terms, so 1e-6)."""
+    rng = np.random.default_rng(D)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 130, 2, D))
+                                    .astype(np.float32)) for _ in range(4))
+    leaves = [[t.clone().requires_grad_(True) for t in (q, k, v)]
+              for _ in range(2)]
+    got = tfa.flash_attention(*leaves[0], causal=True)
+    want = tfa.FlashAttentionFunction.apply(*leaves[1], None, True, None,
+                                            0.0, 0, 0)
+    assert got.shape == want.shape == (2, 130, 2, D)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+    (got * do).sum().backward()
+    (want * do).sum().backward()
+    for a, b in zip(*leaves):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-6, rtol=1e-6)
+    # above the largest instantiated head dim the SDPA gate takes the
+    # plain path, as the JAX package takes XLA's above 512
+    assert tfa.flash_attention_supported((1, 128, 2, 128), (1, 128, 2, 128))
+    assert not tfa.flash_attention_supported((1, 128, 2, 160),
+                                             (1, 128, 2, 160))

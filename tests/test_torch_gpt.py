@@ -20,7 +20,7 @@ from paddle_tpu.models import GPTForCausalLM as JGPTForCausalLM
 from paddle_tpu.quantization import kv as jkv
 from paddle_tpu_torch.convert import from_jax_state
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
-from paddle_tpu_torch.serving import kv_pool
+from paddle_tpu_torch.quantization import kv as kv_pool
 
 torch.set_num_threads(1)
 
@@ -161,3 +161,8 @@ def test_kv_pool_ops_match_jax():
     kv_pool.copy_block(t, 4, 2)
     j = jkv.copy_block(j, 4, 2)
     np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    np.testing.assert_array_equal(
+        kv_pool.rows_to_host(t, torch.from_numpy(table)),
+        jkv.rows_to_host(j, jnp.asarray(table)))
+    assert kv_pool.pool_bytes(t) == jkv.pool_bytes(j)
+    assert kv_pool.pool_block_bytes(t) == jkv.pool_block_bytes(j)

@@ -23,6 +23,7 @@ from paddle_tpu.serving import SamplingParams as JSamplingParams
 from paddle_tpu.serving import ServingConfig as JServingConfig
 from paddle_tpu.serving import ServingEngine as JServingEngine
 from paddle_tpu_torch.compile import buckets as tbuckets
+from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.serving import (BlockError, KVBlockManager, QueueFull,
                                       RequestError, RequestState,
                                       SamplingParams, ServingConfig,
@@ -262,3 +263,29 @@ def test_buckets_match_jax():
         for n in (1, 15, 16, 17, 999, 4096):
             assert (tbuckets.bucket_for(n, ladder)
                     == jbuckets.bucket_for(n, ladder))
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_head_dim_outside_the_kernels_serves_through_padded_pools(quantize):
+    """hidden 160 over 2 heads gives D = 80, which no kernel is built for:
+    the pools are allocated at 128 with the extra columns left zero, the
+    130-token prompt's prefill takes the padded flash path, and the fp
+    engine's greedy stream equals generate()'s. The int8 engine serves
+    through its padded int8 pools the same way."""
+    cfg = GPTConfig(vocab_size=64, hidden_size=160, num_layers=1,
+                    num_heads=2, max_position_embeddings=256)
+    tm = GPTForCausalLM(cfg, device="cpu", seed=3)
+    prompt = np.random.default_rng(8).integers(0, 64, (130,)).astype(
+        np.int32)
+    eng = _port_engine(tm, num_slots=2, block_size=16, num_blocks=16,
+                       quantize_weights=quantize, quantize_kv=quantize)
+    pool = eng._kpools[0]
+    assert pool.shape == (16, 16, 2, 128)
+    rid = eng.submit(prompt, max_new_tokens=6)
+    eng.run_until_done()
+    assert eng.request(rid).finished and eng.output(rid).size == 6
+    data = pool.data if quantize else pool
+    assert not data[..., 80:].any()
+    if not quantize:
+        solo = tm.generate(prompt[None, :], max_new_tokens=6).numpy()
+        np.testing.assert_array_equal(eng.output(rid), solo[0, 130:])

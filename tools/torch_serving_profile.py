@@ -3,10 +3,12 @@
 
 Run from the root of the repository on a machine with a CUDA card:
 
-    python tools/torch_serving_profile.py [--steps 32] [--json PATH]
+    python tools/torch_serving_profile.py [--steps 32] [--quantize]
+                                          [--json PATH]
 
 GPT-350M in bf16 (random weights from seed 0) behind ServingEngine with the
-serving configuration of chip_smoke.py. Eight requests with prompts of
+serving configuration of chip_smoke.py; with --quantize the engine serves
+int8 linears and int8 KV pools (quantize_weights, quantize_kv). Eight requests with prompts of
 512..1000 tokens fill the eight slots; after a warm-up it measures
 
   decode — `steps` engine steps that each run one slot-batched decode step:
@@ -91,6 +93,8 @@ def profile_window(fn, n: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--quantize", action="store_true",
+                    help="int8 weights and int8 KV pools")
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
     import numpy as np
@@ -110,7 +114,9 @@ def main() -> int:
     cfg = GPTConfig(**GPT350M)
     model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
     rng = np.random.default_rng(0)
-    eng = ServingEngine(model, ServingConfig(**SERVE), device=dev)
+    conf = ServingConfig(**SERVE, quantize_weights=args.quantize,
+                         quantize_kv=args.quantize)
+    eng = ServingEngine(model, conf, device=dev)
     for n in np.linspace(512, 1000, 8).astype(int):
         eng.submit(rng.integers(0, cfg.vocab_size, n),
                    SamplingParams(max_new_tokens=3 * args.steps + 8))
@@ -118,9 +124,10 @@ def main() -> int:
     for _ in range(4):
         eng.step()  # warm-up
     result = {"card": card, "torch": torch.__version__,
+              "quantize": args.quantize,
               "decode": profile_window(eng.step, args.steps)}
 
-    eng2 = ServingEngine(model, ServingConfig(**SERVE), device=dev)
+    eng2 = ServingEngine(model, conf, device=dev)
     prompt = rng.integers(0, cfg.vocab_size, 1000)
 
     def one_prefill():
@@ -135,7 +142,7 @@ def main() -> int:
     for phase in ("decode", "prefill_1024"):
         r = result[phase]
         share = r["device_busy_share"]
-        print(f"[{card}] {phase}: wall {r['wall_ms_per_call']:.3f} ms "
+        print(f"[{card}] {'int8 ' if args.quantize else ''}{phase}: wall {r['wall_ms_per_call']:.3f} ms "
               f"({r['profiled_wall_ms_per_call']:.3f} ms profiled), "
               f"device {r['device_ms_per_call']:.3f} ms, busy share "
               f"{'not measured' if share is None else f'{share:.3f}'}, "
