@@ -7,15 +7,20 @@ Run from the root of the repository, on a machine with a CUDA card:
 
 Phases (any failure exits non-zero):
   1. build   — compile every CUDA kernel (flash forward, flash backward,
-               paged attention) with nvcc, all sources at once, and print
-               the build seconds;
+               paged attention) with nvcc, all sources at once; print the
+               build seconds and each kernel's registers and spills, and
+               require HMMA (tensor-core) instructions in the SASS of every
+               bf16 / f16 flash kernel that is built for them and none in
+               the CUDA-core ones;
   2. kernels — hold each kernel against its plain PyTorch version on the
                card at the serving and training paths' shapes (the paged
                kernel's fp and int8 branches at the decode step's shape);
                print max-abs error, tolerance, kernel ms, plain ms, the
                bound and the time of PyTorch's own attention call where one
-               computes the same; read every flash kernel's dropout mask
-               back and require it bit-identical to the plain version's;
+               computes the same (for the backward kernels also its
+               backward alone); read every flash kernel's dropout mask
+               back, in f32 and in bf16, and require it bit-identical to
+               the plain version's;
                run fp16 and a head dim of 80 (zero-padded to 128) through
                every kernel against the plain versions;
   3. train   — ERNIE-base in bf16 (random weights from a seed), batch 32,
@@ -141,17 +146,115 @@ def bound_ms(nbytes: float, flops: float):
 
 
 # ---------------------------------------------------------------- phases --
+_TYPE_NAMES = {"f": "f32", "__nv_bfloat16": "bf16", "__half": "f16",
+               "a": "int8"}
+
+
+def _kernel_label(mangled: str) -> str:
+    """'flash_fwd_mma_kernel<bf16, 64>' from a mangled kernel name."""
+    import re
+
+    for i in range(len(mangled)):  # <length><name>, at any digit
+        m = re.match(r"\d+", mangled[i:])
+        if m is None:
+            continue
+        start = i + m.end()
+        name = mangled[start:start + int(m.group())]
+        t = re.match(r"I(\w+?)Li(\d+)E", mangled[start + len(name):])
+        if name.endswith("_kernel") and t:
+            break
+    else:
+        return mangled[:80]
+    types, rest = [], t.group(1)
+    while rest:  # <length><name> for a class, S_ / S<n>_ for a name
+        n = re.match(r"\d+", rest)  # given before, one letter for a builtin
+        r = re.match(r"S\d*_", rest)
+        if n:
+            end = n.end() + int(n.group())
+            types.append(rest[n.end():end])
+            rest = rest[end:]
+        elif r:
+            types.append("same")
+            rest = rest[r.end():]
+        else:
+            types.append(rest[0])
+            rest = rest[1:]
+    args = [_TYPE_NAMES.get(x, x) for x in types] + [t.group(2)]
+    return f"{name}<{', '.join(args)}>"
+
+
+def _kernel_resources(report: str):
+    """(kernel, registers, spill store bytes, spill load bytes) per entry
+    function, from nvcc's -Xptxas -v report."""
+    import re
+
+    rows, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((_kernel_label(name), int(m.group(1))) + spills)
+            name = None
+    return rows
+
+
+def _hmma_counts(library: str):
+    """{kernel: number of HMMA (tensor-core) instructions} in the
+    library's SASS, or None where the toolkit has no cuobjdump."""
+    from paddle_tpu_torch.ops import _cuda
+
+    exe = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = _kernel_label(line.split("Function :")[1].strip())
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 def phase_build():
+    """Build every kernel; print each kernel's registers and spills, and
+    require HMMA instructions in every tensor-core flash kernel and none
+    in the CUDA-core ones."""
     from paddle_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
     built = _cuda.build_all()
     say(f"build: {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
+    resources = {}
     for src, info in built.items():
         say(f"build: {src} {info['seconds']:.1f} s -> {info['library']}")
-        for line in info["report"].splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"build:   {line.strip()}")
+        for name, regs, st, ld in _kernel_resources(info["report"]):
+            resources[name] = dict(registers=regs, spill_stores=st,
+                                   spill_loads=ld)
+            say(f"build:   {name}: {regs} registers, spill stores {st} B, "
+                f"spill loads {ld} B")
+    for src in ("flash_fwd.cu", "flash_bwd.cu"):
+        counts = _hmma_counts(built[src]["library"])
+        if counts is None:
+            say(f"build: {src}: no cuobjdump, HMMA count not measured")
+            continue
+        say(f"build: {src} HMMA instructions per kernel: {counts}")
+        wrong = {n: c for n, c in counts.items()
+                 if (c > 0) != ("_mma_kernel" in n)}
+        if wrong:
+            raise AssertionError(f"{src}: tensor-core instructions where "
+                                 f"not expected, or missing: {wrong}")
+    return resources
 
 
 def phase_kernels(dev):
@@ -452,17 +555,21 @@ def phase_train_kernels(dev):
     kw = dict(dropout_p=p, seed=seed)
     rows = {}
 
-    # masks: each kernel's against dropout_keep, over every (b, h, row, col)
-    masks = fa.probe_dropout_masks(B, H, S, p, seed, dev)
+    # masks: each kernel's against dropout_keep, over every (b, h, row,
+    # col); f32 reads the CUDA-core kernels, bf16 the tensor-core ones
     want = fa._keep_bhqk(seed, p, B, H, S, S, dev)
-    same = {n: bool(torch.equal(m, want)) for n, m in masks.items()}
     kept = want.float().mean().item()
-    del masks, want
-    if not all(same.values()):
-        raise AssertionError(f"dropout masks differ from dropout_keep: {same}")
-    say(f"kernel dropout masks [{B},{H},{S},{S}] p={p} seed={seed}: fwd, "
-        f"dkv and dq bit-identical to dropout_keep {same}; kept share "
-        f"{kept:.5f}")
+    for dtype in (torch.float32, torch.bfloat16):
+        masks = fa.probe_dropout_masks(B, H, S, p, seed, dev, dtype)
+        same = {n: bool(torch.equal(m, want)) for n, m in masks.items()}
+        del masks
+        if not all(same.values()):
+            raise AssertionError(f"{dtype} dropout masks differ from "
+                                 f"dropout_keep: {same}")
+        say(f"kernel dropout masks [{B},{H},{S},{S}] {dtype} p={p} "
+            f"seed={seed}: fwd, dkv and dq bit-identical to dropout_keep "
+            f"{same}; kept share {kept:.5f}")
+    del want
 
     def inputs(dtype, n=1, shape=(B, S, H, D)):
         return [[torch.randn(*shape, generator=gen).to(dev, dtype)
@@ -522,6 +629,13 @@ def phase_train_kernels(dev):
     dq_ms = cuda_ms([lambda s=s: fa.flash_attention_bwd_dq(
         s[0], s[1], s[2], None, s[4], s[5], s[3], False, None, **kw)
         for s in prep])
+    # the same calls without dropout: what the mask's hash costs
+    nd = dict(dropout_p=0.0, seed=seed)
+    fwd_nd_ms = cuda_ms([lambda s=s: fa.flash_attention_fwd(
+        s[0], s[1], s[2], None, False, None, **nd) for s in prep])
+    dkv_nd_ms = cuda_ms([lambda s=s: fa.flash_attention_bwd_dkv(
+        s[0], s[1], s[2], None, s[4], s[5], s[3], False, None, **nd)
+        for s in prep])
     plain_fwd_ms = cuda_ms([lambda s=s: fa.flash_attention_plain(
         s[0], s[1], s[2], None, False, None, **kw) for s in prep], iters=3)
     plain_bwd_ms = cuda_ms([lambda s=s: fa.flash_attention_bwd_plain(
@@ -541,7 +655,12 @@ def phase_train_kernels(dev):
         torch.autograd.grad(o, s_[:3], s_[3])
 
     lib_fb_ms = cuda_ms([lambda s=s: lib_step(s) for s in lib])
-    del lib, prep, sets
+    # SDPA's backward alone: autograd.grad over a retained graph (the
+    # same dropout mask every call), like for like with dkv + dq
+    graphs = [(s_, sdpa(s_[0], s_[1], s_[2], dropout_p=p)) for s_ in lib]
+    lib_bwd_ms = cuda_ms([lambda s=s_, o=o: torch.autograd.grad(
+        o, s[:3], s[3], retain_graph=True) for s_, o in graphs])
+    del graphs, lib, prep, sets
     io = elem * 2
     stats = B * H * S * 4
     flop1 = 2 * B * H * S * S * D  # one S x S x D product
@@ -551,23 +670,28 @@ def phase_train_kernels(dev):
     pair_b = bound_ms(7 * io + 2 * stats, 5 * flop1)
     rows["fwd_dropout"] = dict(
         shape=[B, S, H, D], max_abs_err=err_out[0], lse_err=err_lse[0],
-        ms=fwd_ms, plain_ms=plain_fwd_ms, library_ms=lib_fwd_ms,
-        bound_ms=fwd_b[0], bound_by=fwd_b[1])
+        ms=fwd_ms, ms_no_dropout=fwd_nd_ms, plain_ms=plain_fwd_ms,
+        library_ms=lib_fwd_ms, bound_ms=fwd_b[0], bound_by=fwd_b[1])
     rows["dkv"] = dict(shape=[B, S, H, D], max_abs_err=errs["dk"][0],
                        dv_err=errs["dv"][0], ms=dkv_ms,
-                       plain_ms=plain_bwd_ms, library_ms=lib_fb_ms,
-                       bound_ms=dkv_b[0], bound_by=dkv_b[1])
+                       ms_no_dropout=dkv_nd_ms, plain_ms=plain_bwd_ms,
+                       library_ms=lib_fb_ms,
+                       library_bwd_ms=lib_bwd_ms, bound_ms=dkv_b[0],
+                       bound_by=dkv_b[1])
     rows["dq"] = dict(shape=[B, S, H, D], max_abs_err=errs["dq"][0],
                       ms=dq_ms, plain_ms=plain_bwd_ms, library_ms=lib_fb_ms,
-                      bound_ms=dq_b[0], bound_by=dq_b[1])
+                      library_bwd_ms=lib_bwd_ms, bound_ms=dq_b[0],
+                      bound_by=dq_b[1])
     say(f"kernel flash_fwd {shape} bf16 dropout {p}: max_abs_err "
         f"{err_out[0]:.3g} (tol {BF16_ATOL}) lse_err {err_lse[0]:.3g} "
-        f"(tol {LSE_ATOL}) ms {fwd_ms:.4f} plain_ms {plain_fwd_ms:.4f} "
+        f"(tol {LSE_ATOL}) ms {fwd_ms:.4f} (without dropout "
+        f"{fwd_nd_ms:.4f}) plain_ms {plain_fwd_ms:.4f} "
         f"sdpa_ms {lib_fwd_ms:.4f} bound_ms {fwd_b[0]:.5f} ({fwd_b[1]}) "
         f"achieved {2 * flop1 / (fwd_ms * 1e-3) / 1e12:.2f} TFLOP/s")
     say(f"kernel flash_bwd_dkv {shape} bf16 dropout {p}: max_abs_err "
         f"dk {errs['dk'][0]:.3g} dv {errs['dv'][0]:.3g} (tol {BF16_ATOL} + "
-        f"{BF16_GRAD_RTOL:.4g}|x|) ms {dkv_ms:.4f} bound_ms "
+        f"{BF16_GRAD_RTOL:.4g}|x|) ms {dkv_ms:.4f} (without dropout "
+        f"{dkv_nd_ms:.4f}) bound_ms "
         f"{dkv_b[0]:.5f} ({dkv_b[1]}) achieved "
         f"{4 * flop1 / (dkv_ms * 1e-3) / 1e12:.2f} TFLOP/s")
     say(f"kernel flash_bwd_dq {shape} bf16 dropout {p}: max_abs_err "
@@ -576,8 +700,9 @@ def phase_train_kernels(dev):
         f"TFLOP/s")
     say(f"kernel flash backward pair: {dkv_ms + dq_ms:.4f} ms (+ delta) vs "
         f"plain backward {plain_bwd_ms:.4f} ms, sdpa fwd+bwd "
-        f"{lib_fb_ms:.4f} ms; bound of the least backward work (5 "
-        f"products) {pair_b[0]:.5f} ms ({pair_b[1]})")
+        f"{lib_fb_ms:.4f} ms, sdpa bwd alone {lib_bwd_ms:.4f} ms; bound of "
+        f"the least backward work (5 products) {pair_b[0]:.5f} ms "
+        f"({pair_b[1]})")
 
     # sliding window: causal, S = 1024, window 256, forward and backward
     Bw, Sw, W = 4, 1024, 256
@@ -1004,7 +1129,7 @@ def main() -> int:
         f"{sys.version.split()[0]}; device {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
     try:
-        phase_build()
+        resources = phase_build()
         kernels = phase_kernels(dev)
         variants = phase_variant_kernels(dev)
         kernels.update(phase_train_kernels(dev))
@@ -1044,16 +1169,18 @@ def main() -> int:
              launches_by_path={"serve": launches["flash_fwd"],
                                "train": train_launches["flash_fwd"],
                                "serve_int8": q_launches["flash_fwd"]}),
-        row("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:272",
-            train_launches["flash_bwd_dkv"], kernels["dkv"]),
-        row("flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:318",
-            train_launches["flash_bwd_dq"], kernels["dq"]),
+        dict(row("flash_bwd_dkv", "flash_bwd.cu", "flash_attention.py:272",
+                 train_launches["flash_bwd_dkv"], kernels["dkv"]),
+             library_bwd_ms=kernels["dkv"]["library_bwd_ms"]),
+        dict(row("flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:318",
+                 train_launches["flash_bwd_dq"], kernels["dq"]),
+             library_bwd_ms=kernels["dq"]["library_bwd_ms"]),
         row("paged_attention", "paged_attention.cu",
             "paged_attention.py:151", launches["paged_attention"], p),
         dict(row("paged_attention_int8", "paged_attention.cu",
                  "paged_attention.py:151", q_launches["paged_attention_int8"],
                  p8), branch="quantized=True (dequant at :185-187)"),
-    ], "variants": variants}
+    ], "variants": variants, "resources": resources}
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

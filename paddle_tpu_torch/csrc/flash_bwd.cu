@@ -18,14 +18,36 @@
 // tiles per tile pair (4 in dkv, 3 in dq; the least work for the gradients
 // is 5), 90 GFLOP per layer, against ~150 MB of traffic: at the bf16
 // tensor-core rate the operations take ~0.05-0.07 ms per kernel and the
-// bytes less. This simple design does the products with f32 FMAs on the
-// CUDA cores, so operations bound it by a wide margin. What it does about
-// that: the block's fixed operand tiles (K and V for dkv; Q and dO for dq)
-// stay in shared memory as f32 for the whole loop, each thread computes a
-// 4 x 8 patch of s and dP from conflict-free 16-byte shared loads, p and dS
-// go through shared memory once (transposed for dkv, so the accumulation
-// reads them as float4 rows), and tiles outside the causal / window band
-// are never loaded. Tensor cores (mma/wgmma) are the next step.
+// bytes less. Beside the products each entry pays for an exponential and,
+// with dropout, the 12-instruction integer hash.
+//
+// What flash_bwd_dkv does about it (bf16 and f16 inputs): one block of 4
+// warps per 64-key tile, each warp owning 16 keys; the K and V tiles stay
+// in shared memory in their 16-bit type (rows padded by 16 bytes: ldmatrix
+// without bank conflicts). The block walks the q tiles of the band; the
+// next Q and dO tiles are copied with 16-byte cp.async into a second
+// buffer while this tile's products run, with the rows' lse (base 2) and
+// delta beside them. Each warp computes the transposed tiles S^T = K Q^T
+// and dP^T = V dO^T on the tensor cores (mma.sync.m16n8k16, f32
+// accumulators; Q and dO as B operands through ldmatrix), 32 q rows at a
+// time (16 at D = 128), so that the dK and dV accumulators (16 keys x D
+// each per warp, in f32 registers) and the tiles fit without spills. p,
+// dropout and dS are formed on the accumulators in registers, where each
+// lane knows its (key, row) from the C layout (mma.cuh); P^T and dS^T,
+// rounded to the input type, are then already the A operands of dV +=
+// P^T dO and dK += dS^T Q (dO and Q through ldmatrix.trans), with no trip
+// through shared memory. Only tiles that cross the diagonal, the window
+// edge or the ragged key edge pay for the mask. The one rounding the f32
+// kernel does not make is P's and dS's, to the input type, before those
+// two products.
+//
+// f32 inputs take the CUDA-core dK/dV kernel (flash_bwd_dkv_f32_kernel:
+// f32 FMAs, tiles widened to f32 in shared memory, p and dS through shared
+// memory transposed), which keeps full f32 where tensor cores would give
+// TF32. flash_bwd_dq is that CUDA-core design for every type: each thread
+// computes a 4 x 8 patch of s and dP from conflict-free 16-byte shared
+// loads, dS goes through shared memory once, and tiles outside the causal /
+// window band are never loaded. Its tensor-core form is the next step.
 //
 // Layout: q, dout [B, Sq, H, D]; k, v [B, Sk, H, D] (contiguous, one dtype:
 // f32, bf16 or f16); kv_bias [B, Sk] f32 or null; lse, delta [B, H, Sq] f32;
@@ -34,11 +56,16 @@
 // here.
 //
 // Grid: (ceil(Sk / 64) for dkv or ceil(Sq / 64) for dq, H, B); 128 threads.
-// Thread t computes the s / dP entries (rows r + 16i, cols c + 8j) with
-// r = t / 8, c = t % 8, i < 4, j < 8, and owns output rows r + 16i, dims
-// c + 8j (j < D / 8) of its block's tile.
+// Tensor-core dkv: warp w owns keys 16w..16w+15 of the tile; lane (g =
+// lane / 4, t = lane % 4) holds keys 16w+g and 16w+g+8, q rows 8j+2t,
+// 8j+2t+1 of each 32-row (D = 128: 16-row) step, and output dims 8j+2t,
+// 8j+2t+1 (j < D / 8).
+// CUDA-core kernels: thread t computes the s / dP entries (rows r + 16i,
+// cols c + 8j) with r = t / 8, c = t % 8, i < 4, j < 8, and owns output
+// rows r + 16i, dims c + 8j (j < D / 8) of its block's tile.
 
 #include "flash_common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -48,7 +75,7 @@ constexpr int TP = BQ + 4;  // pitch of the transposed p / dS tiles (dkv)
 constexpr int SP = BK + 8;  // pitch of the dS tile (dq)
 
 template <int D>
-constexpr size_t dkv_smem_bytes() {
+constexpr size_t dkv_f32_smem_bytes() {
   return sizeof(float) *
          (4 * static_cast<size_t>(64) * qk_pitch(D) +  // Ks Vs Qs dOs
           2 * static_cast<size_t>(BK) * TP +          // PT dST
@@ -124,7 +151,7 @@ __device__ __forceinline__ void entry_grads(float s, float dp, bool vis,
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_bwd_dkv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v,
                      const float* __restrict__ kv_bias,
                      const T* __restrict__ dout,
@@ -372,6 +399,220 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------ tensor cores: dK/dV, bf16, f16 --
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  // K, V, then Q and dO in two buffers each (16-bit, padded rows); then
+  // the rows' lse (base 2) and delta, two buffers each
+  return 2 * static_cast<size_t>(2 * BK + 4 * BQ) * ptt::mma::tile_pitch(D) +
+         sizeof(float) * 4 * BQ;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const float* __restrict__ kv_bias,
+                         const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, T* __restrict__ dk,
+                         T* __restrict__ dv, int Sq, int Sk, int H,
+                         float scale, int causal, int window, unsigned seed,
+                         Dropout drop) {
+  using namespace ptt::mma;
+  constexpr int P = tile_pitch(D);
+  constexpr int KS = D / 16;  // k16 slices of K Q^T and V dO^T
+  constexpr int DN = D / 8;   // n8 tiles of a dK / dV row
+  // q rows per product step: at D = 128 the dK and dV accumulators take
+  // 128 registers a lane, so the step's S^T / dP^T tiles shrink to 16 rows
+  constexpr int QC = D >= 128 ? 16 : 32;
+  constexpr int NJ = QC / 8;  // n8 tiles of a step's S^T row
+  extern __shared__ float4 smem4[];
+  T* Ks = reinterpret_cast<T*>(smem4);
+  T* Vs = Ks + BK * P;
+  T* Qs = Vs + BK * P;        // [2][BQ][P]
+  T* dOs = Qs + 2 * BQ * P;   // [2][BQ][P]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * BQ * P);  // [2][BQ]
+  float* Dl = Ls + 2 * BQ;                                 // [2][BQ]
+
+  const int k0 = blockIdx.x * BK;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int64_t stride = static_cast<int64_t>(H) * D;
+  const int64_t stat = (static_cast<int64_t>(b) * H + h) * Sq;
+  const int kvalid = min(BK, Sk - k0);
+  const float sl2 = scale * kLog2e;  // scores in base 2
+  drop.set_block(seed, b, h);
+
+  // this lane's keys: key0 and key0 + 8; their bias (base 2) and hash terms
+  const int key0 = k0 + warp * 16 + g;
+  float bias2[2] = {0.f, 0.f};
+  unsigned ct[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (kv_bias != nullptr && key < Sk)
+      bias2[i] = kv_bias[static_cast<int64_t>(b) * Sk + key] * kLog2e;
+    ct[i] = Dropout::col_term(key);
+  }
+
+  // q tiles holding any visible entry of this KV tile (`_block_runs`)
+  const int nq = (Sq + BQ - 1) / BQ;
+  int q_begin = 0;
+  int q_end = nq;
+  if (causal) {
+    q_begin = k0 / BQ;
+    if (window > 0) q_end = min(nq, (k0 + BK - 1 + window) / BQ + 1);
+  }
+
+  // start copying q tile iq (Q, dO, lse, delta) into buffer buf
+  auto fetch = [&](int iq, int buf) {
+    const int q0 = iq * BQ;
+    const int qvalid = min(BQ, Sq - q0);
+    const int64_t q_off = (static_cast<int64_t>(b) * Sq + q0) * stride + h * D;
+    load_tile_async<T, D, BQ, THREADS>(Qs + buf * BQ * P, q + q_off, stride,
+                                       qvalid);
+    load_tile_async<T, D, BQ, THREADS>(dOs + buf * BQ * P, dout + q_off,
+                                       stride, qvalid);
+    if (tid < BQ) {
+      // padded rows: lse = +inf makes p = 0, so they add nothing
+      Ls[buf * BQ + tid] =
+          tid < qvalid ? lse[stat + q0 + tid] * kLog2e : INFINITY;
+      Dl[buf * BQ + tid] = tid < qvalid ? delta[stat + q0 + tid] : 0.f;
+    }
+  };
+
+  const int64_t kv_off = (static_cast<int64_t>(b) * Sk + k0) * stride + h * D;
+  load_tile_async<T, D, BK, THREADS>(Ks, k + kv_off, stride, kvalid);
+  load_tile_async<T, D, BK, THREADS>(Vs, v + kv_off, stride, kvalid);
+  if (q_begin < q_end) fetch(q_begin, 0);
+  cp_async_commit();
+
+  float adk[DN][4], adv[DN][4];
+#pragma unroll
+  for (int j = 0; j < DN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[j][e] = adv[j][e] = 0.f;
+
+  for (int iq = q_begin; iq < q_end; ++iq) {
+    const int buf = (iq - q_begin) & 1;
+    if (iq + 1 < q_end) fetch(iq + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the tile just started has landed
+    __syncthreads();
+    const T* Qt = Qs + buf * BQ * P;
+    const T* Gt = dOs + buf * BQ * P;
+    const float* Lt = Ls + buf * BQ;
+    const float* Dt = Dl + buf * BQ;
+    const int q0 = iq * BQ;
+    const bool edge =
+        k0 + BK > Sk ||
+        (causal && (k0 + BK - 1 > q0 ||
+                    (window > 0 && q0 + BQ - 1 - k0 > window)));
+
+#pragma unroll 1
+    for (int qc = 0; qc < BQ; qc += QC) {
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x QC rows
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ka[4], va[4];
+        load_a<P>(ka, Ks, warp * 16, ks * 16, lane);
+        load_a<P>(va, Vs, warp * 16, ks * 16, lane);
+#pragma unroll
+        for (int jp = 0; jp < NJ / 2; ++jp) {
+          uint32_t qf[4], gf[4];
+          load_b_nk<P>(qf, Qt, qc + jp * 16, ks * 16, lane);
+          load_b_nk<P>(gf, Gt, qc + jp * 16, ks * 16, lane);
+          mma16816<T>(s[2 * jp], ka, qf[0], qf[1]);
+          mma16816<T>(s[2 * jp + 1], ka, qf[2], qf[3]);
+          mma16816<T>(dp[2 * jp], va, gf[0], gf[1]);
+          mma16816<T>(dp[2 * jp + 1], va, gf[2], gf[3]);
+        }
+      }
+
+      // p = exp(s scale + bias - lse); dropout; dS = p (dP - delta) scale;
+      // P^T (after dropout) and dS^T rounded to T as A fragments
+      uint32_t pa[QC / 16][4], sa[QC / 16][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int rr = qc + 8 * j + 2 * t;  // this lane's first row in the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(Lt + rr);
+        const float2 d2 = *reinterpret_cast<const float2*>(Dt + rr);
+        const unsigned rt[2] = {Dropout::row_term(q0 + rr),
+                                Dropout::row_term(q0 + rr + 1)};
+        float pd[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ki = e >> 1;  // key0 + 8 ki
+          const int ri = e & 1;   // row q0 + rr + ri
+          float x = fmaf(s[j][e], sl2, bias2[ki] - (ri ? l2.y : l2.x));
+          if (edge && !visible(q0 + rr + ri, key0 + 8 * ki, Sk, causal,
+                               window))
+            x = -INFINITY;
+          const float p = exp2_fast(x);  // masked or padded row: 0
+          float pdrop = p;
+          float dpv = dp[j][e];
+          if (drop.on) {
+            if (drop.keep_terms(rt[ri], ct[ki])) {
+              pdrop = p * drop.inv_keep;
+              dpv *= drop.inv_keep;
+            } else {
+              pdrop = 0.f;
+              dpv = 0.f;
+            }
+          }
+          pd[e] = pdrop;
+          ds[e] = p * (dpv - (ri ? d2.y : d2.x)) * scale;
+        }
+        pa[j / 2][(j % 2) * 2] = pack2<T>(pd[0], pd[1]);
+        pa[j / 2][(j % 2) * 2 + 1] = pack2<T>(pd[2], pd[3]);
+        sa[j / 2][(j % 2) * 2] = pack2<T>(ds[0], ds[1]);
+        sa[j / 2][(j % 2) * 2 + 1] = pack2<T>(ds[2], ds[3]);
+      }
+
+      // dV += P^T dO, dK += dS^T Q over this step's QC rows
+#pragma unroll
+      for (int kk = 0; kk < QC / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < DN / 2; ++np) {
+          uint32_t gf[4], qf[4];
+          load_b_kn<P>(gf, Gt, qc + kk * 16, np * 16, lane);
+          load_b_kn<P>(qf, Qt, qc + kk * 16, np * 16, lane);
+          mma16816<T>(adv[2 * np], pa[kk], gf[0], gf[1]);
+          mma16816<T>(adv[2 * np + 1], pa[kk], gf[2], gf[3]);
+          mma16816<T>(adk[2 * np], sa[kk], qf[0], qf[1]);
+          mma16816<T>(adk[2 * np + 1], sa[kk], qf[2], qf[3]);
+        }
+      }
+    }
+    __syncthreads();  // this buffer is free for the tile after next
+  }
+  cp_async_wait<0>();  // no copy outlives the block (an empty band)
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 8 * i;
+    if (key >= Sk) continue;
+    const int64_t off = (static_cast<int64_t>(b) * Sk + key) * stride + h * D;
+#pragma unroll
+    for (int j = 0; j < DN; ++j) {
+      store2<T>(dk + off + 8 * j + 2 * t, adk[j][2 * i], adk[j][2 * i + 1]);
+      store2<T>(dv + off + 8 * j + 2 * t, adv[j][2 * i], adv[j][2 * i + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *kv_bias, *dout, *lse, *delta;
   void *d0, *d1;  // dkv: dk, dv; dq: dq
@@ -382,15 +623,29 @@ struct Args {
   Dropout drop;
 };
 
+template <typename T>
+using DkvKernel = void (*)(const T*, const T*, const T*, const float*,
+                           const T*, const float*, const float*, T*, T*, int,
+                           int, int, float, int, int, unsigned, Dropout);
+
+// f32: the CUDA-core kernel; bf16 and f16: the tensor-core kernel
 template <typename T, int D>
 cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D>();
+  DkvKernel<T> kernel;
+  size_t smem;
+  if constexpr (std::is_same_v<T, float>) {
+    kernel = flash_bwd_dkv_f32_kernel<T, D>;
+    smem = dkv_f32_smem_bytes<D>();
+  } else {
+    kernel = flash_bwd_dkv_mma_kernel<T, D>;
+    smem = dkv_mma_smem_bytes<D>();
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sk + BK - 1) / BK, a.H, a.B);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.kv_bias),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),

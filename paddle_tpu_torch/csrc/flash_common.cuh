@@ -68,10 +68,21 @@ struct Dropout {
           static_cast<unsigned>(h) * 2654435761u + seed * 0x9E3779B9u;
   }
 
+  // the row's and the column's factors of the hash, for callers that
+  // reuse them across a tile
+  static __device__ __forceinline__ unsigned row_term(int row) {
+    return static_cast<unsigned>(row) * 2654435761u;
+  }
+  static __device__ __forceinline__ unsigned col_term(int col) {
+    return static_cast<unsigned>(col) * 0x85EBCA6Bu;
+  }
+
   __device__ __forceinline__ bool keep(int row, int col) const {
-    unsigned x = ((static_cast<unsigned>(row) * 2654435761u) ^
-                  (static_cast<unsigned>(col) * 0x85EBCA6Bu)) +
-                 mix;
+    return keep_terms(row_term(row), col_term(col));
+  }
+
+  __device__ __forceinline__ bool keep_terms(unsigned rt, unsigned ct) const {
+    unsigned x = (rt ^ ct) + mix;
     x ^= x >> 16;
     x *= 0x7FEB352Du;
     x ^= x >> 15;

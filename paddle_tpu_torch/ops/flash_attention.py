@@ -421,12 +421,13 @@ def flash_attention(q, k, v, kv_bias=None, causal: bool = False,
 
 
 def probe_dropout_masks(B: int, H: int, S: int, dropout_p: float, seed: int,
-                        device) -> dict:
+                        device, dtype=torch.float32) -> dict:
     """Read back the keep mask that each of the three flash functions
     applies, as [B, H, S, S] bools keyed "fwd", "dkv" and "dq" (on CUDA
-    the kernels', on the CPU the plain versions'), from f32 calls whose
-    inputs make every score 0 and route one column or row of the mask into
-    each output element (64 at a time):
+    the kernels', on the CPU the plain versions'), from calls in ``dtype``
+    (on CUDA, bf16 / f16 take the tensor-core forward and dK/dV kernels,
+    f32 the CUDA-core ones) whose inputs make every score 0 and route one
+    column or row of the mask into each output element (64 at a time):
 
     - fwd: v one-hot over keys [c0, c0 + 64), other keys masked by
       kv_bias, so out[b, row, h, d] = keep(row, c0 + d) / (64 (1 - p));
@@ -437,7 +438,7 @@ def probe_dropout_masks(B: int, H: int, S: int, dropout_p: float, seed: int,
 
     Each entry is > 0 where kept and exactly 0 where dropped."""
     D, f32 = 64, torch.float32
-    z = torch.zeros(B, S, H, D, dtype=f32, device=device)
+    z = torch.zeros(B, S, H, D, dtype=dtype, device=device)
     e0 = z.clone()
     e0[..., 0] = 1.0
     lse = torch.full((B, H, S), math.log(S), dtype=f32, device=device)

@@ -12,8 +12,11 @@ order (1e-5); bf16 outputs may differ by one bf16 rounding step (2^-6 for
 outputs by one f16 step (2^-9 for |x| < 4, so 2e-3); lse is f32 on both
 sides (1e-4). Gradients: f32 1e-4 (three products deep, each summed in
 another order), bf16 one bf16 step of the value (rtol 2^-7) plus 1.6e-2,
-f16 one f16 step (rtol 2^-10) plus 4e-3. Dropout masks are integer
-hashes: bit-identical. The int8 paged branch dequantizes the same int8
+f16 one f16 step (rtol 2^-10) plus 4e-3. The bf16 / f16 forward and
+dK/dV kernels run on the tensor cores and also round p (and dS) to the
+input type before their second product, half a step of a value below 1
+spread over the row's sum, inside the same tolerances. Dropout masks are
+integer hashes: bit-identical. The int8 paged branch dequantizes the same int8
 payloads and f32 scales on both sides, so it takes the fp tolerances of
 q's dtype.
 """
@@ -264,11 +267,60 @@ def test_flash_forward_and_backward_kernels_match_plain(
 
 
 @pytest.mark.cuda
-def test_kernels_draw_the_plain_versions_dropout_masks(cuda_device):
-    masks = tfa.probe_dropout_masks(2, 3, 320, 0.1, -2**31, cuda_device)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_draw_the_plain_versions_dropout_masks(cuda_device, dtype):
+    """f32 reads the CUDA-core kernels' masks, bf16 the tensor-core
+    forward's and dK/dV's (dQ's kernel is one design for every type)."""
+    masks = tfa.probe_dropout_masks(2, 3, 320, 0.1, -2**31, cuda_device,
+                                    dtype)
     want = tfa._keep_bhqk(-2**31, 0.1, 2, 3, 320, 320, cuda_device)
     for name, got in masks.items():
         assert torch.equal(got, want), name
+
+
+GRAD_TOLS = {torch.bfloat16: (1.6e-2, 2.0 ** -7),
+             torch.float16: (4e-3, 2.0 ** -10)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", TOLS[1:])
+@pytest.mark.parametrize("Sq,Sk,causal,p,biased", [
+    (200, 328, False, 0.1, True),   # Sq != Sk, both ragged, key padding
+    (130, 70, False, 0.0, False),   # more rows than keys, one ragged tile
+    (40, 200, False, 0.1, False),   # Sq < 64: one ragged q tile
+    (40, 40, True, 0.1, False)])    # Sq = Sk < 64, causal
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_tensor_core_kernels_take_uneven_shapes(cuda_device, dtype, atol, Sq,
+                                                Sk, causal, p, biased, D):
+    """bf16 / f16 forward and backward kernels where tiles are ragged or
+    q and k differ in length, against the plain versions."""
+    rng = np.random.default_rng(Sq * Sk + D)
+    q, do = (torch.from_numpy(rng.standard_normal((2, Sq, 4, D)).astype(
+        np.float32)).to(cuda_device, dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((2, Sk, 4, D)).astype(
+        np.float32)).to(cuda_device, dtype) for _ in range(2))
+    kvb = None
+    if biased:
+        b = np.zeros((2, Sk), np.float32)
+        b[0, Sk - 50:] = -np.inf
+        kvb = torch.from_numpy(b).to(cuda_device)
+    args = (causal, None, p, 77, 0)
+    kernels = (tfa.KERNEL, tfa.DKV_KERNEL, tfa.DQ_KERNEL)
+    before = [x.launches for x in kernels]
+    out, lse = tfa.flash_attention_fwd(q, k, v, kvb, *args)
+    got = tfa.flash_attention_bwd(q, k, v, kvb, out, lse, do, *args)
+    torch.cuda.synchronize()
+    assert [x.launches - b for x, b in zip(kernels, before)] == [1, 1, 1]
+    want_out, want_lse = tfa.flash_attention_plain(q, k, v, kvb, *args)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol,
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+    want = tfa.flash_attention_bwd_plain(q, k, v, kvb, out, lse, do, *args)
+    g_atol, g_rtol = GRAD_TOLS[dtype]
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), atol=g_atol,
+                                   rtol=g_rtol, msg=name)
 
 
 @pytest.mark.cuda
