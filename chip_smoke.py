@@ -3,22 +3,31 @@
 
 Run from the root of the repository, on a machine with a CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(--parent: a checkout of the parent commit; phase 2 then also times its
+dQ and paged kernels, built from DIR's sources, in turns with this tree's
+on the same inputs.)
 
 Phases (any failure exits non-zero):
   1. build   — compile every CUDA kernel (flash forward, flash backward,
                paged attention) with nvcc, all sources at once; print the
                build seconds and each kernel's registers and spills, and
                require HMMA (tensor-core) instructions in the SASS of every
-               bf16 / f16 flash kernel that is built for them and none in
-               the CUDA-core ones;
+               bf16 / f16 flash kernel that is built for them (the dQ
+               kernel's six instantiations among them) and none in the
+               CUDA-core ones, and no spills in the dQ tensor-core kernel
+               and the cluster paged kernel;
   2. kernels — hold each kernel against its plain PyTorch version on the
                card at the serving and training paths' shapes (the paged
-               kernel's fp and int8 branches at the decode step's shape);
-               print max-abs error, tolerance, kernel ms, plain ms, the
-               bound and the time of PyTorch's own attention call where one
-               computes the same (for the backward kernels also its
-               backward alone); read every flash kernel's dropout mask
+               kernel's fp and int8 branches at the decode step's shape,
+               with a long and a short context, and the cluster size it
+               launches with); print max-abs error, tolerance, kernel ms
+               (the flash backward kernels also without dropout; the paged
+               kernel's from CUDA-graph replays, as its wrapper's host time
+               exceeds it), plain ms, the bound and the time of PyTorch's own attention call
+               where one computes the same (for the backward kernels also
+               its backward alone); read every flash kernel's dropout mask
                back, in f32 and in bf16, and require it bit-identical to
                the plain version's;
                run fp16 and a head dim of 80 (zero-padded to 128) through
@@ -116,23 +125,38 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fns, iters: int = 20) -> float:
+def cuda_ms(fns, iters: int = 20, graph: bool = False) -> float:
     """Mean ms per call over `iters` calls, cycling through `fns` (one
     closure per copy of the inputs, so the copies together exceed the
-    50 MB L2 and each call finds its inputs cold)."""
+    50 MB L2 and each call finds its inputs cold). With `graph`, the
+    `iters` calls are captured in one CUDA graph and timed as its replays:
+    the device's time for kernels shorter than their wrapper's host time."""
     import torch
 
     for f in fns:
         f()
     torch.cuda.synchronize()
+
+    def run():
+        for i in range(iters):
+            fns[i % len(fns)]()
+
+    reps = 1
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        g.replay()
+        torch.cuda.synchronize()
+        run, reps = g.replay, 5
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
+    for _ in range(reps):
+        run()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (iters * reps)
 
 
 def copies_for(nbytes: int) -> int:
@@ -246,6 +270,9 @@ def phase_build():
     for src in ("flash_fwd.cu", "flash_bwd.cu"):
         counts = _hmma_counts(built[src]["library"])
         if counts is None:
+            if src == "flash_bwd.cu":
+                raise AssertionError("no cuobjdump: the dQ kernel's HMMA "
+                                     "instructions cannot be counted")
             say(f"build: {src}: no cuobjdump, HMMA count not measured")
             continue
         say(f"build: {src} HMMA instructions per kernel: {counts}")
@@ -254,14 +281,89 @@ def phase_build():
         if wrong:
             raise AssertionError(f"{src}: tensor-core instructions where "
                                  f"not expected, or missing: {wrong}")
+        if src == "flash_bwd.cu":
+            dq = [n for n in counts if n.startswith("flash_bwd_dq_mma_")]
+            if len(dq) != 6:  # bf16 and f16 at D = 32, 64 and 128
+                raise AssertionError(f"dQ tensor-core kernels: {dq}")
+    # the dQ tensor-core kernel and the cluster paged kernel: every
+    # instantiation built, none spilling (nvcc reports only on a build: a
+    # library built before this run, in this checkout, was checked then)
+    if not (built["flash_bwd.cu"]["report"]
+            and built["paged_attention.cu"]["report"]):
+        say("build: libraries built before this run: registers and spills "
+            "not measured here")
+        return resources
+    watched = {n: r for n, r in resources.items()
+               if n.startswith(("flash_bwd_dq_mma_kernel",
+                                "paged_attention_kernel"))}
+    spilled = {n: r for n, r in watched.items()
+               if r["spill_stores"] or r["spill_loads"]}
+    if len(watched) != 6 + 18 or spilled:
+        raise AssertionError(f"dQ / paged kernels: {len(watched)} of 24 "
+                             f"instantiations, spills {spilled}")
     return resources
+
+
+# --parent DIR: a checkout of the parent commit whose flash_bwd.cu and
+# paged_attention.cu (same C ABI) are built beside this tree's, so that
+# phase 2 times the two versions in turns on the same inputs
+PARENT_KERNELS = {}
+
+
+def _bind_parent(parent_dir: str) -> None:
+    from paddle_tpu_torch.ops import _cuda
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    out = os.path.join(ROOT, "build", "parent_kernels")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for src in ("flash_bwd.cu", "paged_attention.cu"):
+        lib = os.path.join(out, src.replace(".cu", ".so"))
+        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib,
+               os.path.join(parent_dir, "paddle_tpu_torch", "csrc", src)]
+        procs[src] = (lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    for src, (lib, proc) in procs.items():
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent {src}: nvcc failed\n{report}")
+    for kern in (fa.DQ_KERNEL, pa.KERNEL, pa.INT8_KERNEL):
+        PARENT_KERNELS[kern.symbol] = _cuda.CudaKernel(
+            kern.source, kern.symbol, kern.argtypes,
+            library=procs[kern.source][0])
+    say(f"parent: {parent_dir}: flash_bwd.cu and paged_attention.cu built "
+        "for the A/B timings of phase 2")
+
+
+def ab_ms(fns, module, attr: str, graph: bool = False):
+    """(ms, parent ms or None): `fns` timed by `cuda_ms` with
+    `module.attr`, a kernel, as it is and, with --parent, as the parent's
+    twin, in the turns parent, change, change, parent; each number is the
+    mean of its turns."""
+    own = getattr(module, attr)
+    twin = PARENT_KERNELS.get(own.symbol)
+    if twin is None:
+        return cuda_ms(fns, graph=graph), None
+    turns = {"parent": [], "change": []}
+    for turn in ("parent", "change", "change", "parent"):
+        setattr(module, attr, twin if turn == "parent" else own)
+        try:
+            turns[turn].append(cuda_ms(fns, graph=graph))
+        finally:
+            setattr(module, attr, own)
+    return (sum(turns["change"]) / 2, sum(turns["parent"]) / 2)
+
+
+def _vs_parent(ms, parent_ms) -> str:
+    return "" if parent_ms is None else f" (parent {parent_ms:.4f})"
 
 
 def phase_kernels(dev):
     import torch
 
     from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import paged_attention as pa
 
     gen = torch.Generator(device="cpu").manual_seed(0)
     H, D = 16, 64
@@ -327,105 +429,114 @@ def phase_kernels(dev):
             f"bound_ms {b_ms:.5f} ({b_by})")
     results["flash_fwd"] = flash_rows
 
-    # -- paged attention: one decode step of the serving shape
+    # -- paged attention: one decode step of the serving shape (the
+    # serving config's 128-page table), fp and int8 pools, at a long
+    # context and at a short one
     B, BS, M = 8, 16, 128
     # visible columns per slot: a full table, an overrun row past the
     # table (its pages past M are masked), mixed lengths, an idle slot
-    positions = [2047, M * BS + 37, 1500, 1023, 700, 333, 17, 0]
-    NB = 1 + B * M
-    perm = torch.randperm(NB - 1, generator=gen) + 1
-    table = torch.zeros(B, M, dtype=torch.int32)
-    for b, p in enumerate(positions):
-        if b == B - 1:
-            continue  # idle slot: table all null block, pos 0
-        used = min(M, p // BS + 1)
-        table[b, :used] = perm[b * M:b * M + used].to(torch.int32)
-    table = table.to(dev)
-    pos = torch.tensor(positions, dtype=torch.int32, device=dev)[:, None]
-    pool_bytes = 2 * NB * BS * H * D * 2
-    n = copies_for(pool_bytes)
-    sets = []
-    for _ in range(n):
-        q = torch.randn(B, 1, H, D, generator=gen).to(dev, torch.bfloat16)
-        kp = torch.randn(NB, BS, H, D, generator=gen).to(dev, torch.bfloat16)
-        vp = torch.randn(NB, BS, H, D, generator=gen).to(dev, torch.bfloat16)
-        sets.append((q, kp, vp))
-    q, kp, vp = sets[0]
-    out = pa.paged_attention(q, kp, vp, table, pos, block_size=BS)
-    torch.cuda.synchronize()
-    ref = pa.paged_attention_plain(q, kp, vp, table, pos, block_size=BS)
-    err = (out.float() - ref.float()).abs().max().item()
-    # a pos = -1 row sees no column and must come out as zeros
-    z = pa.paged_attention(q[:1], kp, vp, table[:1],
-                           torch.full((1, 1), -1, dtype=torch.int32,
-                                      device=dev), block_size=BS)
-    zero_err = z.float().abs().max().item()
-    if not (err <= BF16_ATOL and zero_err == 0.0):
-        raise AssertionError(f"paged: max_abs_err {err} (tol {BF16_ATOL}), "
-                             f"pos=-1 row max |out| {zero_err} (want 0)")
-    ms = cuda_ms([lambda s=s: pa.paged_attention(
-        s[0], s[1], s[2], table, pos, block_size=BS) for s in sets])
-    plain_ms = cuda_ms([lambda s=s: pa.paged_attention_plain(
-        s[0], s[1], s[2], table, pos, block_size=BS) for s in sets], iters=5)
-    n_tok = sum(min(M * BS, p + 1) for p in positions)
-    nbytes = (2 * n_tok * H * D * 2 + 2 * B * H * D * 2 + B * M * 4 + B * 4)
-    flops = 4 * n_tok * H * D
-    b_ms, b_by = bound_ms(nbytes, flops)
-    results["paged_attention"] = [dict(
-        B=B, M=M, visible_tokens=n_tok, max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)]
-    say(f"kernel paged_attention q [8,1,16,64] bf16, pools [{NB},16,16,64], "
-        f"{n_tok} visible tokens: max_abs_err {err:.3g} (tol {BF16_ATOL}) "
-        f"pos=-1 row max|out| {zero_err} ms {ms:.4f} plain_ms "
-        f"{plain_ms:.4f} bound_ms {b_ms:.5f} ({b_by}) "
-        f"achieved {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
+    long_pos = [2047, M * BS + 37, 1500, 1023, 700, 333, 17, 0]
+    short_pos = [97, 103, 88, 110, 95, 101, 92, 106]
+    for quantized in (False, True):
+        name = "paged_attention_int8" if quantized else "paged_attention"
+        long_row = _paged_case(dev, gen, long_pos, M, BS, H, D, quantized)
+        short_row = _paged_case(dev, gen, short_pos, M, BS, H, D, quantized)
+        results[name] = [dict(long_row, short_context=short_row)]
+    return results
 
-    # -- the int8 branch: the same step over int8 pools with f32 scales
+
+def _paged_cluster_size(B, s, H, D, M, BS, quantized) -> int:
+    """The cluster size the bf16 paged kernel launches with here."""
+    import ctypes
+
+    import torch
+
+    from paddle_tpu_torch.ops import _cuda
+
+    lib = ctypes.CDLL(_cuda.build_all(["paged_attention.cu"])
+                      ["paged_attention.cu"]["library"])
+    return lib.paged_attention_cluster_size(
+        B, s, H, D, M, BS, _cuda.DTYPE_CODES[torch.bfloat16], int(quantized))
+
+
+def _paged_case(dev, gen, positions, M, BS, H, D, quantized):
+    """One decode step (q [B, 1, H, D] bf16) over pools holding just the
+    pages the table uses (copies cycled past the L2): the kernel against
+    the plain version, a pos = -1 row that must give zeros, the kernel's
+    device time (and the parent's, with --parent), the plain version's,
+    the bound."""
+    import torch
+
+    from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.quantization import kv as kvq
 
-    del sets, q, kp, vp
-    qsets = []
-    for _ in range(copies_for(2 * NB * BS * H * (D + 4))):
+    B = len(positions)
+    used = [min(M, p // BS + 1) for p in positions]
+    NB = 1 + sum(used)
+    perm = torch.randperm(NB - 1, generator=gen) + 1
+    table = torch.zeros(B, M, dtype=torch.int32)
+    at = 0
+    for b, u in enumerate(used):
+        if positions[b] == 0 and b == B - 1:
+            continue  # idle slot: table all null block, pos 0
+        table[b, :u] = perm[at:at + u].to(torch.int32)
+        at += u
+    table = table.to(dev)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)[:, None]
+    row_bytes = D + 4 if quantized else 2 * D  # int8 + f32 scale, or bf16
+    sets = []
+    for _ in range(copies_for(2 * NB * BS * H * row_bytes)):
         q = torch.randn(B, 1, H, D, generator=gen).to(dev, torch.bfloat16)
-        kq, vq = (kvq.quantize_pool(torch.randn(NB, BS, H, D, generator=gen)
-                                    .to(dev, torch.bfloat16))
-                  for _ in range(2))
-        qsets.append((q, kq.data, vq.data, dict(k_scale=kq.scale,
-                                                v_scale=vq.scale)))
-    q, kd, vd, sc = qsets[0]
-    out = pa.paged_attention(q, kd, vd, table, pos, block_size=BS, **sc)
+        pools = [torch.randn(NB, BS, H, D, generator=gen).to(
+            dev, torch.bfloat16) for _ in range(2)]
+        kw = {}
+        if quantized:
+            kq, vq = (kvq.quantize_pool(p_) for p_ in pools)
+            pools, kw = [kq.data, vq.data], dict(k_scale=kq.scale,
+                                                 v_scale=vq.scale)
+        sets.append((q, *pools, kw))
+    q, kp, vp, kw = sets[0]
+    out = pa.paged_attention(q, kp, vp, table, pos, block_size=BS, **kw)
     torch.cuda.synchronize()
-    ref = pa.paged_attention_plain(q, kd, vd, table, pos, block_size=BS,
-                                   **sc)
+    ref = pa.paged_attention_plain(q, kp, vp, table, pos, block_size=BS,
+                                   **kw)
     err = (out.float() - ref.float()).abs().max().item()
-    z = pa.paged_attention(q[:1], kd, vd, table[:1],
+    z = pa.paged_attention(q[:1], kp, vp, table[:1],
                            torch.full((1, 1), -1, dtype=torch.int32,
-                                      device=dev), block_size=BS, **sc)
+                                      device=dev), block_size=BS, **kw)
     zero_err = z.float().abs().max().item()
+    name = "paged_attention_int8" if quantized else "paged_attention"
+    n_tok = sum(min(M * BS, p + 1) for p in positions)
     if not (err <= BF16_ATOL and zero_err == 0.0):
-        raise AssertionError(f"paged int8: max_abs_err {err} (tol "
-                             f"{BF16_ATOL}), pos=-1 row max |out| "
+        raise AssertionError(f"{name} ({n_tok} tokens): max_abs_err {err} "
+                             f"(tol {BF16_ATOL}), pos=-1 row max |out| "
                              f"{zero_err} (want 0)")
-    ms = cuda_ms([lambda s=s: pa.paged_attention(
+    # a CUDA graph of the calls: the wrapper's host time (~20 us of Python
+    # checks) is longer than the kernel's
+    ms, parent_ms = ab_ms([lambda s=s: pa.paged_attention(
         s[0], s[1], s[2], table, pos, block_size=BS, **s[3])
-        for s in qsets])
+        for s in sets], pa, "INT8_KERNEL" if quantized else "KERNEL",
+        graph=True)
     plain_ms = cuda_ms([lambda s=s: pa.paged_attention_plain(
         s[0], s[1], s[2], table, pos, block_size=BS, **s[3])
-        for s in qsets], iters=5)
-    # int8 payload plus one f32 scale per visible token, head and {k, v}
-    nbytes = (2 * n_tok * H * (D + 4) + 2 * B * H * D * 2 + B * M * 4
+        for s in sets], iters=5)
+    # every visible key and value row read once (int8: payload plus one
+    # f32 scale per token, head and {k, v}), q and out, the table, pos
+    nbytes = (2 * n_tok * H * row_bytes + 2 * B * H * D * 2 + B * M * 4
               + B * 4)
-    b_ms, b_by = bound_ms(nbytes, flops)
-    results["paged_attention_int8"] = [dict(
-        B=B, M=M, visible_tokens=n_tok, max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)]
-    say(f"kernel paged_attention_int8 q [8,1,16,64] bf16, int8 pools "
-        f"[{NB},16,16,64] + f32 scales [{NB},16,16,1], {n_tok} visible "
-        f"tokens: max_abs_err {err:.3g} (tol {BF16_ATOL}) pos=-1 row "
-        f"max|out| {zero_err} ms {ms:.4f} plain_ms {plain_ms:.4f} "
-        f"bound_ms {b_ms:.5f} ({b_by}) achieved "
+    b_ms, b_by = bound_ms(nbytes, 4 * n_tok * H * D)
+    cluster = _paged_cluster_size(B, 1, H, D, M, BS, quantized)
+    pools = ("int8 pools + f32 scales" if quantized else "bf16 pools")
+    say(f"kernel {name} q [{B},1,{H},{D}] bf16, {pools} [{NB},{BS},{H},"
+        f"{D}], table [{B},{M}], {n_tok} visible tokens, cluster of "
+        f"{cluster}: max_abs_err {err:.3g} (tol {BF16_ATOL}) pos=-1 row "
+        f"max|out| {zero_err} ms {ms:.4f}{_vs_parent(ms, parent_ms)} "
+        f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.5f} ({b_by}) achieved "
         f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
-    return results
+    return dict(B=B, M=M, visible_tokens=n_tok, cluster=cluster,
+                max_abs_err=err, ms=ms, parent_ms=parent_ms,
+                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def phase_variant_kernels(dev):
@@ -521,7 +632,8 @@ def phase_variant_kernels(dev):
                                  f"{launched} launches, max_abs_err {err} "
                                  f"(tol {atol})")
         ms = cuda_ms([lambda: pa.paged_attention(q, *wide, table, pos,
-                                                 block_size=BS, **wkw)])
+                                                 block_size=BS, **wkw)],
+                     graph=True)
         name = str(dtype).replace("torch.", "")
         kname = "paged_attention_int8" if quantized else "paged_attention"
         rows.append(dict(kernel=kname, dtype=name, D=D, pool_D=Dp,
@@ -626,9 +738,9 @@ def phase_train_kernels(dev):
     dkv_ms = cuda_ms([lambda s=s: fa.flash_attention_bwd_dkv(
         s[0], s[1], s[2], None, s[4], s[5], s[3], False, None, **kw)
         for s in prep])
-    dq_ms = cuda_ms([lambda s=s: fa.flash_attention_bwd_dq(
+    dq_ms, dq_parent_ms = ab_ms([lambda s=s: fa.flash_attention_bwd_dq(
         s[0], s[1], s[2], None, s[4], s[5], s[3], False, None, **kw)
-        for s in prep])
+        for s in prep], fa, "DQ_KERNEL")
     # the same calls without dropout: what the mask's hash costs
     nd = dict(dropout_p=0.0, seed=seed)
     fwd_nd_ms = cuda_ms([lambda s=s: fa.flash_attention_fwd(
@@ -636,6 +748,10 @@ def phase_train_kernels(dev):
     dkv_nd_ms = cuda_ms([lambda s=s: fa.flash_attention_bwd_dkv(
         s[0], s[1], s[2], None, s[4], s[5], s[3], False, None, **nd)
         for s in prep])
+    dq_nd_ms, dq_nd_parent_ms = ab_ms([
+        lambda s=s: fa.flash_attention_bwd_dq(
+            s[0], s[1], s[2], None, s[4], s[5], s[3], False, None, **nd)
+        for s in prep], fa, "DQ_KERNEL")
     plain_fwd_ms = cuda_ms([lambda s=s: fa.flash_attention_plain(
         s[0], s[1], s[2], None, False, None, **kw) for s in prep], iters=3)
     plain_bwd_ms = cuda_ms([lambda s=s: fa.flash_attention_bwd_plain(
@@ -679,7 +795,10 @@ def phase_train_kernels(dev):
                        library_bwd_ms=lib_bwd_ms, bound_ms=dkv_b[0],
                        bound_by=dkv_b[1])
     rows["dq"] = dict(shape=[B, S, H, D], max_abs_err=errs["dq"][0],
-                      ms=dq_ms, plain_ms=plain_bwd_ms, library_ms=lib_fb_ms,
+                      ms=dq_ms, ms_no_dropout=dq_nd_ms,
+                      parent_ms=dq_parent_ms,
+                      parent_ms_no_dropout=dq_nd_parent_ms,
+                      plain_ms=plain_bwd_ms, library_ms=lib_fb_ms,
                       library_bwd_ms=lib_bwd_ms, bound_ms=dq_b[0],
                       bound_by=dq_b[1])
     say(f"kernel flash_fwd {shape} bf16 dropout {p}: max_abs_err "
@@ -695,9 +814,11 @@ def phase_train_kernels(dev):
         f"{dkv_b[0]:.5f} ({dkv_b[1]}) achieved "
         f"{4 * flop1 / (dkv_ms * 1e-3) / 1e12:.2f} TFLOP/s")
     say(f"kernel flash_bwd_dq {shape} bf16 dropout {p}: max_abs_err "
-        f"{errs['dq'][0]:.3g} ms {dq_ms:.4f} bound_ms {dq_b[0]:.5f} "
-        f"({dq_b[1]}) achieved {3 * flop1 / (dq_ms * 1e-3) / 1e12:.2f} "
-        f"TFLOP/s")
+        f"{errs['dq'][0]:.3g} (tol {BF16_ATOL} + {BF16_GRAD_RTOL:.4g}|x|) "
+        f"ms {dq_ms:.4f}{_vs_parent(dq_ms, dq_parent_ms)} (without dropout "
+        f"{dq_nd_ms:.4f}{_vs_parent(dq_nd_ms, dq_nd_parent_ms)}) bound_ms "
+        f"{dq_b[0]:.5f} ({dq_b[1]}) achieved "
+        f"{3 * flop1 / (dq_ms * 1e-3) / 1e12:.2f} TFLOP/s")
     say(f"kernel flash backward pair: {dkv_ms + dq_ms:.4f} ms (+ delta) vs "
         f"plain backward {plain_bwd_ms:.4f} ms, sdpa fwd+bwd "
         f"{lib_fb_ms:.4f} ms, sdpa bwd alone {lib_bwd_ms:.4f} ms; bound of "
@@ -1106,6 +1227,14 @@ def phase_quant_parity(dev):
 
 def main() -> int:
     global TAG
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of the parent commit: phase 2 also "
+                         "times its dQ and paged kernels, in turns with "
+                         "this tree's, on the same inputs")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -1130,6 +1259,8 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         resources = phase_build()
+        if args.parent:
+            _bind_parent(args.parent)
         kernels = phase_kernels(dev)
         variants = phase_variant_kernels(dev)
         kernels.update(phase_train_kernels(dev))
@@ -1174,12 +1305,16 @@ def main() -> int:
              library_bwd_ms=kernels["dkv"]["library_bwd_ms"]),
         dict(row("flash_bwd_dq", "flash_bwd.cu", "flash_attention.py:318",
                  train_launches["flash_bwd_dq"], kernels["dq"]),
-             library_bwd_ms=kernels["dq"]["library_bwd_ms"]),
-        row("paged_attention", "paged_attention.cu",
-            "paged_attention.py:151", launches["paged_attention"], p),
+             **{k: kernels["dq"][k] for k in (
+                 "library_bwd_ms", "ms_no_dropout", "parent_ms",
+                 "parent_ms_no_dropout")}),
+        dict(row("paged_attention", "paged_attention.cu",
+                 "paged_attention.py:151", launches["paged_attention"], p),
+             **{k: p[k] for k in ("cluster", "parent_ms", "short_context")}),
         dict(row("paged_attention_int8", "paged_attention.cu",
                  "paged_attention.py:151", q_launches["paged_attention_int8"],
-                 p8), branch="quantized=True (dequant at :185-187)"),
+                 p8), branch="quantized=True (dequant at :185-187)",
+             **{k: p8[k] for k in ("cluster", "parent_ms", "short_context")}),
     ], "variants": variants, "resources": resources}
     print(card)
     print(json.dumps(summary))

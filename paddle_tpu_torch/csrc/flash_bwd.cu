@@ -21,33 +21,45 @@
 // bytes less. Beside the products each entry pays for an exponential and,
 // with dropout, the 12-instruction integer hash.
 //
-// What flash_bwd_dkv does about it (bf16 and f16 inputs): one block of 4
-// warps per 64-key tile, each warp owning 16 keys; the K and V tiles stay
-// in shared memory in their 16-bit type (rows padded by 16 bytes: ldmatrix
-// without bank conflicts). The block walks the q tiles of the band; the
-// next Q and dO tiles are copied with 16-byte cp.async into a second
-// buffer while this tile's products run, with the rows' lse (base 2) and
-// delta beside them. Each warp computes the transposed tiles S^T = K Q^T
-// and dP^T = V dO^T on the tensor cores (mma.sync.m16n8k16, f32
-// accumulators; Q and dO as B operands through ldmatrix), 32 q rows at a
-// time (16 at D = 128), so that the dK and dV accumulators (16 keys x D
-// each per warp, in f32 registers) and the tiles fit without spills. p,
-// dropout and dS are formed on the accumulators in registers, where each
-// lane knows its (key, row) from the C layout (mma.cuh); P^T and dS^T,
-// rounded to the input type, are then already the A operands of dV +=
-// P^T dO and dK += dS^T Q (dO and Q through ldmatrix.trans), with no trip
-// through shared memory. Only tiles that cross the diagonal, the window
-// edge or the ragged key edge pay for the mask. The one rounding the f32
-// kernel does not make is P's and dS's, to the input type, before those
-// two products.
+// What the design does about it (bf16 and f16 inputs): both kernels run
+// their products on the tensor cores (mma.sync.m16n8k16, f32 accumulators,
+// fragments through ldmatrix) with 4 warps per block, tiles in shared
+// memory in their 16-bit type (rows padded by 16 bytes: ldmatrix without
+// bank conflicts), the next tiles copied with 16-byte cp.async into a
+// second buffer while this tile's products run, and p, dropout and dS
+// formed on the accumulators in registers, where each lane knows its (row,
+// key) from the C layout (mma.cuh), so the hash is taken at the same
+// absolute positions as Dropout::keep. Only tiles that cross the diagonal,
+// the window edge or the ragged key edge pay for the mask; tiles outside
+// the causal / window band are never loaded. The one rounding the f32
+// kernels do not make is p's and dS's, to the input type, before the
+// second products.
 //
-// f32 inputs take the CUDA-core dK/dV kernel (flash_bwd_dkv_f32_kernel:
-// f32 FMAs, tiles widened to f32 in shared memory, p and dS through shared
-// memory transposed), which keeps full f32 where tensor cores would give
-// TF32. flash_bwd_dq is that CUDA-core design for every type: each thread
-// computes a 4 x 8 patch of s and dP from conflict-free 16-byte shared
-// loads, dS goes through shared memory once, and tiles outside the causal /
-// window band are never loaded. Its tensor-core form is the next step.
+// - flash_bwd_dkv_mma_kernel: one block per 64-key tile, each warp owning
+//   16 keys, K and V resident; the block walks the q tiles of the band with
+//   Q, dO and the rows' lse (base 2) and delta double-buffered. Each warp
+//   computes the transposed tiles S^T = K Q^T and dP^T = V dO^T (Q and dO
+//   as B operands), 32 q rows at a time (16 at D = 128), so that the dK and
+//   dV accumulators (16 keys x D each per warp) and the tiles fit without
+//   spills. P^T and dS^T, rounded to the input type, are then already the
+//   A operands of dV += P^T dO and dK += dS^T Q (dO and Q through
+//   ldmatrix.trans).
+// - flash_bwd_dq_mma_kernel: the forward's shape. One block per 64-row q
+//   tile, each warp owning 16 q rows; Q and dO resident (their A fragments
+//   kept in registers at D <= 64, re-read from shared memory at D = 128 to
+//   stay clear of spills), the rows' lse (base 2) and delta in registers,
+//   K, V and the kv_bias of the KV tiles double-buffered. Each warp forms
+//   S = Q K^T and dP = dO V^T for its 16 rows, 32 keys at a time (K and V
+//   as B operands), then dS = p (dP - delta) scale, rounded once to the
+//   input type: the C fragments of two n8 key tiles are the A fragment of
+//   one k16 slice of dQ += dS K (K's B fragments through ldmatrix.trans),
+//   so dS never touches shared memory.
+//
+// f32 inputs take the CUDA-core kernels (flash_bwd_dkv_f32_kernel,
+// flash_bwd_dq_f32_kernel: f32 FMAs, tiles widened to f32 in shared memory,
+// each thread computing a 4 x 8 patch of s and dP from conflict-free
+// 16-byte shared loads, p and dS through shared memory), which keep full
+// f32 where tensor cores would give TF32.
 //
 // Layout: q, dout [B, Sq, H, D]; k, v [B, Sk, H, D] (contiguous, one dtype:
 // f32, bf16 or f16); kv_bias [B, Sk] f32 or null; lse, delta [B, H, Sq] f32;
@@ -59,7 +71,9 @@
 // Tensor-core dkv: warp w owns keys 16w..16w+15 of the tile; lane (g =
 // lane / 4, t = lane % 4) holds keys 16w+g and 16w+g+8, q rows 8j+2t,
 // 8j+2t+1 of each 32-row (D = 128: 16-row) step, and output dims 8j+2t,
-// 8j+2t+1 (j < D / 8).
+// 8j+2t+1 (j < D / 8). Tensor-core dq: warp w owns q rows 16w..16w+15;
+// lane (g, t) holds rows 16w+g and 16w+g+8, keys 8j+2t, 8j+2t+1 of each
+// 32-key step and output dims 8j+2t, 8j+2t+1 (j < D / 8).
 // CUDA-core kernels: thread t computes the s / dP entries (rows r + 16i,
 // cols c + 8j) with r = t / 8, c = t % 8, i < 4, j < 8, and owns output
 // rows r + 16i, dims c + 8j (j < D / 8) of its block's tile.
@@ -83,7 +97,7 @@ constexpr size_t dkv_f32_smem_bytes() {
 }
 
 template <int D>
-constexpr size_t dq_smem_bytes() {
+constexpr size_t dq_f32_smem_bytes() {
   return sizeof(float) *
          (4 * static_cast<size_t>(64) * qk_pitch(D) +  // Qs dOs Ks Vs
           static_cast<size_t>(BQ) * SP +              // dSs
@@ -287,13 +301,14 @@ flash_bwd_dkv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
-                    const float* __restrict__ kv_bias,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int Sq, int Sk, int H, float scale, int causal,
-                    int window, unsigned seed, Dropout drop) {
+flash_bwd_dq_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const float* __restrict__ kv_bias,
+                        const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int Sq, int Sk, int H, float scale, int causal,
+                        int window, unsigned seed, Dropout drop) {
   constexpr int QP = qk_pitch(D);
   constexpr int DJ = D / 8;
   extern __shared__ float4 smem4[];
@@ -613,6 +628,217 @@ flash_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// --------------------------------------------- tensor cores: dQ, bf16, f16 --
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  // Q and dO, then K and V in two buffers each (16-bit, padded rows); then
+  // the kv_bias of the two KV tiles (f32, base 2)
+  return 2 * static_cast<size_t>(2 * BQ + 4 * BK) * ptt::mma::tile_pitch(D) +
+         sizeof(float) * 2 * BK;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v,
+                        const float* __restrict__ kv_bias,
+                        const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int Sq, int Sk, int H, float scale, int causal,
+                        int window, unsigned seed, Dropout drop) {
+  using namespace ptt::mma;
+  constexpr int P = tile_pitch(D);
+  constexpr int KS = D / 16;  // k16 slices of Q K^T and dO V^T
+  constexpr int DN = D / 8;   // n8 tiles of a dQ row
+  constexpr int KC = 32;      // keys per product step
+  constexpr int NJ = KC / 8;  // n8 tiles of a step's S row
+  constexpr bool kInRegs = D <= 64;  // Q's and dO's A fragments
+  extern __shared__ float4 smem4[];
+  T* Qs = reinterpret_cast<T*>(smem4);
+  T* dOs = Qs + BQ * P;
+  T* Ks = dOs + BQ * P;      // [2][BK][P]
+  T* Vs = Ks + 2 * BK * P;   // [2][BK][P]
+  float* Bs = reinterpret_cast<float*>(Vs + 2 * BK * P);  // [2][BK]
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int64_t stride = static_cast<int64_t>(H) * D;
+  const int64_t stat = (static_cast<int64_t>(b) * H + h) * Sq;
+  const T* kb = k + static_cast<int64_t>(b) * Sk * stride + h * D;
+  const T* vb = v + static_cast<int64_t>(b) * Sk * stride + h * D;
+  const float* bb =
+      kv_bias != nullptr ? kv_bias + static_cast<int64_t>(b) * Sk : nullptr;
+  const float sl2 = scale * kLog2e;  // scores in base 2
+  drop.set_block(seed, b, h);
+
+  // KV tiles holding any visible entry of this q tile (`_block_runs`)
+  int kv_begin = 0;
+  int kv_end = (Sk + BK - 1) / BK;
+  if (causal) {
+    kv_end = min(kv_end, (q0 + BQ - 1) / BK + 1);
+    if (window > 0 && q0 > window) kv_begin = (q0 - window) / BK;
+  }
+
+  // start copying KV tile ik into buffer buf (one cp.async group with
+  // whatever else was started since the last commit)
+  auto fetch = [&](int ik, int buf) {
+    const int k0 = ik * BK;
+    const int kvalid = min(BK, Sk - k0);
+    load_tile_async<T, D, BK, THREADS>(Ks + buf * BK * P, kb + k0 * stride,
+                                       stride, kvalid);
+    load_tile_async<T, D, BK, THREADS>(Vs + buf * BK * P, vb + k0 * stride,
+                                       stride, kvalid);
+    if (bb != nullptr && tid < BK)
+      Bs[buf * BK + tid] = tid < kvalid ? bb[k0 + tid] * kLog2e : 0.f;
+  };
+
+  const int qvalid = min(BQ, Sq - q0);
+  const int64_t q_off = (static_cast<int64_t>(b) * Sq + q0) * stride + h * D;
+  load_tile_async<T, D, BQ, THREADS>(Qs, q + q_off, stride, qvalid);
+  load_tile_async<T, D, BQ, THREADS>(dOs, dout + q_off, stride, qvalid);
+  if (kv_begin < kv_end) fetch(kv_begin, 0);
+  cp_async_commit();
+
+  // this lane's rows: row0 and row0 + 8; their lse (base 2), delta and
+  // hash terms (padded rows: lse = +inf makes p = 0, so they add nothing)
+  const int row0 = q0 + warp * 16 + g;
+  float lse2[2], dlt[2];
+  unsigned rt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    lse2[i] = row < Sq ? lse[stat + row] * kLog2e : INFINITY;
+    dlt[i] = row < Sq ? delta[stat + row] : 0.f;
+    rt[i] = Dropout::row_term(row);
+  }
+  uint32_t qf[kInRegs ? KS : 1][4], gf[kInRegs ? KS : 1][4];
+  float acc[DN][4];
+#pragma unroll
+  for (int j = 0; j < DN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int ik = kv_begin; ik < kv_end; ++ik) {
+    const int buf = (ik - kv_begin) & 1;
+    if (ik + 1 < kv_end) fetch(ik + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the tile just started has landed
+    __syncthreads();
+    const T* Kt = Ks + buf * BK * P;
+    const T* Vt = Vs + buf * BK * P;
+    const float* Bt = Bs + buf * BK;
+    if constexpr (kInRegs) {
+      if (ik == kv_begin) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          load_a<P>(qf[ks], Qs, warp * 16, ks * 16, lane);
+          load_a<P>(gf[ks], dOs, warp * 16, ks * 16, lane);
+        }
+      }
+    }
+    const int k0 = ik * BK;
+    const bool edge =
+        k0 + BK > Sk ||
+        (causal && (k0 + BK - 1 > q0 ||
+                    (window > 0 && q0 + BQ - 1 - k0 > window)));
+
+#pragma unroll 1
+    for (int kc = 0; kc < BK; kc += KC) {
+      // S = Q K^T and dP = dO V^T: this warp's 16 rows x KC keys
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4], ga[4];
+        if constexpr (kInRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            a[e] = qf[ks][e];
+            ga[e] = gf[ks][e];
+          }
+        } else {
+          load_a<P>(a, Qs, warp * 16, ks * 16, lane);
+          load_a<P>(ga, dOs, warp * 16, ks * 16, lane);
+        }
+#pragma unroll
+        for (int jp = 0; jp < NJ / 2; ++jp) {
+          uint32_t kf[4], vf[4];
+          load_b_nk<P>(kf, Kt, kc + jp * 16, ks * 16, lane);
+          load_b_nk<P>(vf, Vt, kc + jp * 16, ks * 16, lane);
+          mma16816<T>(s[2 * jp], a, kf[0], kf[1]);
+          mma16816<T>(s[2 * jp + 1], a, kf[2], kf[3]);
+          mma16816<T>(dp[2 * jp], ga, vf[0], vf[1]);
+          mma16816<T>(dp[2 * jp + 1], ga, vf[2], vf[3]);
+        }
+      }
+
+      // p = exp(s scale + bias - lse); dropout on dP; dS = p (dP - delta)
+      // scale, rounded to T as the A fragments of dS K
+      uint32_t sa[KC / 16][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = kc + 8 * j + 2 * t;  // this lane's first key in the tile
+        float2 bias2 = make_float2(0.f, 0.f);
+        if (bb != nullptr) bias2 = *reinterpret_cast<const float2*>(Bt + c);
+        const unsigned ct[2] = {Dropout::col_term(k0 + c),
+                                Dropout::col_term(k0 + c + 1)};
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ri = e >> 1;  // row row0 + 8 ri
+          const int ci = e & 1;   // key k0 + c + ci
+          float x = fmaf(s[j][e], sl2, (ci ? bias2.y : bias2.x) - lse2[ri]);
+          if (edge && !visible(row0 + 8 * ri, k0 + c + ci, Sk, causal,
+                               window))
+            x = -INFINITY;
+          const float p = exp2_fast(x);  // masked or padded row: 0
+          float dpv = dp[j][e];
+          if (drop.on)
+            dpv = drop.keep_terms(rt[ri], ct[ci]) ? dpv * drop.inv_keep : 0.f;
+          ds[e] = p * (dpv - dlt[ri]) * scale;
+        }
+        sa[j / 2][(j % 2) * 2] = pack2<T>(ds[0], ds[1]);
+        sa[j / 2][(j % 2) * 2 + 1] = pack2<T>(ds[2], ds[3]);
+      }
+
+      // dQ += dS K over this step's KC keys
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < DN / 2; ++np) {
+          uint32_t kf[4];
+          load_b_kn<P>(kf, Kt, kc + kk * 16, np * 16, lane);
+          mma16816<T>(acc[2 * np], sa[kk], kf[0], kf[1]);
+          mma16816<T>(acc[2 * np + 1], sa[kk], kf[2], kf[3]);
+        }
+      }
+    }
+    __syncthreads();  // this buffer is free for the tile after next
+  }
+  cp_async_wait<0>();  // no copy outlives the block (an empty band)
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= Sq) continue;
+    T* o = dq + (static_cast<int64_t>(b) * Sq + row) * stride + h * D;
+#pragma unroll
+    for (int j = 0; j < DN; ++j)
+      store2<T>(o + 8 * j + 2 * t, acc[j][2 * i], acc[j][2 * i + 1]);
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *kv_bias, *dout, *lse, *delta;
   void *d0, *d1;  // dkv: dk, dv; dq: dq
@@ -627,6 +853,10 @@ template <typename T>
 using DkvKernel = void (*)(const T*, const T*, const T*, const float*,
                            const T*, const float*, const float*, T*, T*, int,
                            int, int, float, int, int, unsigned, Dropout);
+template <typename T>
+using DqKernel = void (*)(const T*, const T*, const T*, const float*,
+                          const T*, const float*, const float*, T*, int, int,
+                          int, float, int, int, unsigned, Dropout);
 
 // f32: the CUDA-core kernel; bf16 and f16: the tensor-core kernel
 template <typename T, int D>
@@ -655,15 +885,24 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// f32: the CUDA-core kernel; bf16 and f16: the tensor-core kernel
 template <typename T, int D>
 cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
+  DqKernel<T> kernel;
+  size_t smem;
+  if constexpr (std::is_same_v<T, float>) {
+    kernel = flash_bwd_dq_f32_kernel<T, D>;
+    smem = dq_f32_smem_bytes<D>();
+  } else {
+    kernel = flash_bwd_dq_mma_kernel<T, D>;
+    smem = dq_mma_smem_bytes<D>();
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.kv_bias),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),

@@ -20,17 +20,43 @@
 // element read, far below the ~295 flops per byte where operations would
 // bound it. The int8 branch moves 64 bytes of payload plus a 4-byte scale
 // per token, head and {k, v} instead of 128 bytes: ~0.53 of the bf16 bytes.
-// What this design does about that: it reads only the pages a row can see
-// (the walk stops at min(M * BS, pos + 1) columns, so pages past the table
-// or past pos are never loaded — the TPU kernel's clamp-and-mask of overrun
-// pages without the read); each warp streams its own 16-token chunks, two
-// lanes per token reading 16-byte words of one contiguous key row (128
-// bytes in bf16, 64 in int8), then one value row per token; eight warps per
-// block keep loads in flight and merge their partial softmax states in
-// shared memory at the end. Both scales of a token are read once, by the
-// two lanes that score it, beside its key row. There is no
-// scalar prefetch on the card: each lane reads its token's block id from
-// the table itself.
+// At decode shapes there are few (row, head, slot) triples (128 at 8 slots
+// x 16 heads, against 132 SMs), so the limit in practice is how many bytes
+// are in flight: the latency of each dependent load, not the memory rate.
+//
+// What this design does about that:
+// - It reads only the pages a row can see (the walk stops at min(M * BS,
+//   pos + 1) columns, so pages past the table or past pos are never loaded
+//   — the TPU kernel's clamp-and-mask of overrun pages without the read).
+// - Each (row, head, slot) is split across the C blocks of one thread-block
+//   cluster. C is chosen on the host from shapes and the card alone, never
+//   from positions (no host sync; the launch keeps one shape for a
+//   fixed-shape step): the largest power of two up to 8 with which the
+//   whole grid is resident at once, so no block waits for a second wave
+//   (C = 2 at 8 slots x 16 heads on 132 SMs), and each rank keeps at least
+//   64 columns of the table. Rank r walks the r-th contiguous share of the
+//   row's visible tokens; a share is at least one pass of the block, so a
+//   row that one pass covers is walked by rank 0 alone, with no barrier
+//   and no merge (the other ranks return at once). Otherwise each rank
+//   writes its partial (m, l, acc[D]) into rank 0's shared memory (DSMEM),
+//   and rank 0 merges them in rank order by the lse rule and writes the
+//   output. The cluster barrier is split in halves: every rank arrives
+//   when it starts and waits only before its DSMEM write (rank 0 must have
+//   started), then arrives once the write is out and waits before the
+//   merge. One launch per call, no scratch tensor.
+// - Inside a block, eight warps each stream their own chunks of tokens.
+//   In a chunk, LPT lanes score one token (LPT = 2 at bf16 D = 64: two
+//   16-byte words of the key row each) while the value lanes already load
+//   that chunk's value rows (one 16-byte word of a row per lane, several
+//   rows per lane): both rows of every token of the chunk are in flight at
+//   once, and each lane's block id for the next chunk is read while this
+//   one computes. The value lanes take each token's weight p (p * v_scale
+//   for int8) from its scoring lane by a shuffle, keep f32 partial sums of
+//   their words, and fold them across the warp once, after the walk. The
+//   warps then merge their softmax states in shared memory.
+// - There is no scalar prefetch on the card: each scoring lane reads its
+//   token's block id from the table itself. Both scales of a token are
+//   read beside its key row.
 //
 // Layout: q [B, s, H, D] (f32, bf16 or f16), k/v pools [NB, BS, H, D] in
 // q's dtype or int8, scales [NB, BS, H, 1] f32 (int8 pools only),
@@ -38,7 +64,10 @@
 // dtype (the f32 result is rounded once on store). Block ids outside
 // [0, NB) are clamped, as XLA clamps the TPU kernel's gathers.
 //
-// Grid: (s, H, B), one block per (query row, head, slot); 256 threads.
+// Grid: (s * C, H, B) in clusters of (C, 1, 1): blocks C j .. C j + C - 1
+// (ranks 0 .. C - 1) share query row j; 256 threads.
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -46,9 +75,58 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int CHUNK = 16;  // tokens per warp iteration: two lanes per token
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+constexpr int MIN_SHARE = 64;   // table columns per rank, at least
+
+__host__ __device__ constexpr int max3(int a, int b, int c) {
+  return a > b ? (a > c ? a : c) : (b > c ? b : c);
+}
+
+// The walk's lane geometry for pools of element type P at head dim D.
+template <typename P, int D>
+struct Walk {
+  static constexpr int RB = D * static_cast<int>(sizeof(P));  // row bytes
+  // scoring: LPT lanes per token, each with KE elements (<= 32, <= 64 B)
+  static constexpr int LPT = max3(2, D / 32, RB / 64);
+  static constexpr int KE = D / LPT;
+  static constexpr int KW = KE * static_cast<int>(sizeof(P)) / 16;  // words
+  static constexpr int CHUNK = 32 / LPT;  // tokens per warp iteration
+  // values: NC 16-byte words per row, EL elements each; lane l takes word
+  // l % NC of tokens l / NC + TG i (i < VPL)
+  static constexpr int NC = RB / 16;
+  static constexpr int EL = 16 / static_cast<int>(sizeof(P));
+  static constexpr int TG = 32 / NC;
+  static constexpr int VPL = CHUNK / TG;
+  static_assert(KW >= 1 && KE * static_cast<int>(sizeof(P)) % 16 == 0,
+                "whole 16-byte words per scoring lane");
+  static_assert(NC <= 32 && VPL >= 1 && CHUNK % TG == 0,
+                "value words split evenly over the warp");
+};
+
+// The cluster barrier in its two halves (PTX barrier.cluster): arrive
+// early, wait where it is needed.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the EL elements of one 16-byte word, widened to f32
+template <typename P>
+__device__ __forceinline__ void widen(const uint4& w, float* o) {
+  const P* e = reinterpret_cast<const P*>(&w);
+#pragma unroll
+  for (int k = 0; k < 16 / static_cast<int>(sizeof(P)); ++k)
+    o[k] = ptt::to_float(e[k]);
+}
 
 // T: the type of q and out; P: the pools' element type (T, or int8_t with
 // scales)
@@ -60,106 +138,186 @@ paged_attention_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
                        const float* __restrict__ v_scale,
                        const int* __restrict__ block_table,
                        const int* __restrict__ positions, T* __restrict__ out,
-                       int s, int H, int NB, int M, int BS, float scale) {
+                       int s, int H, int NB, int M, int BS, float scale,
+                       int C) {
+  using W = Walk<P, D>;
   constexpr bool kQuant = std::is_same<P, int8_t>::value;
-  constexpr int HALF = D / 2;  // dims per lane when scoring
-  constexpr int DL = D / 32;   // dims per lane when accumulating values
   __shared__ float sm_m[WARPS];
   __shared__ float sm_l[WARPS];
   __shared__ float sm_acc[WARPS][D];
+  // rank 0: every rank's share of the row, acc[D], m, l
+  __shared__ float part[MAX_CLUSTER][D + 2];
 
-  const int j = blockIdx.x;
+  const int j = blockIdx.x / C;
+  const int rank = blockIdx.x % C;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int half = lane & 1;
+  const int kpart = lane % W::LPT;     // scoring: this lane's part of a key
+  const int vword = lane % W::NC;      // values: this lane's word of a row
+  const int vgroup = lane / W::NC;     // values: this lane's first token
   const int64_t row = static_cast<int64_t>(H) * D;  // one token's row
   const int pos = positions[b * s + j];
   const int n_tok = max(0, min(M * BS, pos + 1));
+  // rank r walks tokens [r share, r share + share): whole warp chunks, and
+  // at least one pass of the block, so a row that one pass covers is
+  // walked by rank 0 alone, with no barrier and no merge
+  const int share = max(
+      ((n_tok + C - 1) / C + W::CHUNK - 1) / W::CHUNK * W::CHUNK,
+      WARPS * W::CHUNK);
+  const bool split = n_tok > share;  // the same in every rank of the cluster
+  if (!split && rank > 0) return;
+  if (split) cluster_arrive_relaxed();  // this block has started
+  const int begin = rank * share;
+  const int end = min(n_tok, begin + share);
   const int* table = block_table + static_cast<int64_t>(b) * M;
 
-  float qv[HALF];
-  ptt::load_f32<T, HALF>(
-      q + (static_cast<int64_t>(b) * s + j) * row + h * D + half * HALF, qv);
+  float qv[W::KE];
+  ptt::load_f32<T, W::KE>(
+      q + (static_cast<int64_t>(b) * s + j) * row + h * D + kpart * W::KE,
+      qv);
 
-  float m = ptt::NEG_INF, l = 0.f, acc[DL];
+  float m = ptt::NEG_INF, l = 0.f, acc[W::EL];
 #pragma unroll
-  for (int d = 0; d < DL; ++d) acc[d] = 0.f;
+  for (int e = 0; e < W::EL; ++e) acc[e] = 0.f;
 
-  for (int t0 = warp * CHUNK; t0 < n_tok; t0 += WARPS * CHUNK) {
-    const int tok = t0 + lane / 2;
-    const bool valid = tok < n_tok;
-    int64_t base = 0;  // element offset of this token's row for head h
-    float dot = 0.f, vscale = 1.f;
+  // each lane's token block id is read one chunk ahead
+  int blk_next = 0;
+  if (begin + warp * W::CHUNK + lane / W::LPT < end)
+    blk_next = table[(begin + warp * W::CHUNK + lane / W::LPT) / BS];
+  for (int t0 = begin + warp * W::CHUNK; t0 < end;
+       t0 += WARPS * W::CHUNK) {
+    // every key and value row of the chunk in flight together
+    const int tok = t0 + lane / W::LPT;
+    const bool valid = tok < end;
+    int64_t base = h * D;  // element offset of this token's row for head h
     if (valid) {
-      const int blk = min(max(table[tok / BS], 0), NB - 1);
-      base = (static_cast<int64_t>(blk) * BS + tok % BS) * row + h * D;
-      float kv[HALF];
-      ptt::load_f32<P, HALF>(k_pool + base + half * HALF, kv);
-      if constexpr (kQuant) {  // one scale per (pool row, head): base / D
-        const float ks = k_scale[base / D];
-        vscale = v_scale[base / D];
-#pragma unroll
-        for (int d = 0; d < HALF; ++d) kv[d] *= ks;
-      }
-#pragma unroll
-      for (int d = 0; d < HALF; ++d) dot += qv[d] * kv[d];
+      const int blk = min(max(blk_next, 0), NB - 1);
+      base += (static_cast<int64_t>(blk) * BS + tok % BS) * row;
     }
-    dot += __shfl_xor_sync(0xffffffffu, dot, 1);  // both halves of a token
+    if (tok + WARPS * W::CHUNK < end)
+      blk_next = table[(tok + WARPS * W::CHUNK) / BS];
+    uint4 kraw[W::KW];
+#pragma unroll
+    for (int w = 0; w < W::KW; ++w)
+      kraw[w] = reinterpret_cast<const uint4*>(k_pool + base +
+                                               kpart * W::KE)[w];
+    uint4 vraw[W::VPL];
+#pragma unroll
+    for (int i = 0; i < W::VPL; ++i) {
+      const int tk = vgroup + W::TG * i;  // token of the chunk
+      const int64_t vb = __shfl_sync(0xffffffffu, base, tk * W::LPT);
+      vraw[i] = t0 + tk < end
+                    ? *reinterpret_cast<const uint4*>(v_pool + vb +
+                                                      vword * W::EL)
+                    : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float ks = 1.f, vscale = 1.f;
+    if constexpr (kQuant) {  // one scale per (pool row, head): base / D
+      if (valid) {
+        ks = k_scale[base / D];
+        vscale = v_scale[base / D];
+      }
+    }
+
+    float kv[W::KE];
+#pragma unroll
+    for (int w = 0; w < W::KW; ++w) widen<P>(kraw[w], kv + w * W::EL);
+    float dot = 0.f;
+#pragma unroll
+    for (int d = 0; d < W::KE; ++d) {
+      if constexpr (kQuant) kv[d] *= ks;
+      dot += qv[d] * kv[d];
+    }
+#pragma unroll
+    for (int off = 1; off < W::LPT; off <<= 1)  // the lanes of a token
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
     const float sc = valid ? dot * scale : -INFINITY;
     float mx = sc;
 #pragma unroll
-    for (int off = 16; off >= 2; off >>= 1)
+    for (int off = 16; off >= W::LPT; off >>= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     const float m_new = fmaxf(m, mx);  // >= NEG_INF: finite
     const float alpha = expf(m - m_new);
     const float p = expf(sc - m_new);  // invalid: exp(-inf) = 0
     const float pw = p * vscale;       // weight of the token's value row
-    float psum = half == 0 ? p : 0.f;
+    float psum = kpart == 0 ? p : 0.f;
 #pragma unroll
     for (int off = 16; off >= 1; off >>= 1)
       psum += __shfl_xor_sync(0xffffffffu, psum, off);
     l = l * alpha + psum;
     m = m_new;
 #pragma unroll
-    for (int d = 0; d < DL; ++d) acc[d] *= alpha;
-
-    // values: lane owns dims [lane * DL, lane * DL + DL) of every token
+    for (int e = 0; e < W::EL; ++e) acc[e] *= alpha;
 #pragma unroll
-    for (int t = 0; t < CHUNK; ++t) {
-      const float pt = __shfl_sync(0xffffffffu, pw, 2 * t);
-      const int64_t bt = __shfl_sync(0xffffffffu, base, 2 * t);
-      if (t0 + t < n_tok) {  // warp-uniform
-        float vv[DL];
-        ptt::load_f32<P, DL>(v_pool + bt + lane * DL, vv);
+    for (int i = 0; i < W::VPL; ++i) {
+      const float pt =
+          __shfl_sync(0xffffffffu, pw, (vgroup + W::TG * i) * W::LPT);
+      float vv[W::EL];
+      widen<P>(vraw[i], vv);
 #pragma unroll
-        for (int d = 0; d < DL; ++d) acc[d] += pt * vv[d];
-      }
+      for (int e = 0; e < W::EL; ++e) acc[e] += pt * vv[e];
     }
   }
 
+  // fold the value lanes' token groups: lanes < NC then hold the warp's sum
+#pragma unroll
+  for (int off = W::NC; off < 32; off <<= 1)
+#pragma unroll
+    for (int e = 0; e < W::EL; ++e)
+      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
   if (lane == 0) {
     sm_m[warp] = m;
     sm_l[warp] = l;
   }
+  if (lane < W::NC) {
 #pragma unroll
-  for (int d = 0; d < DL; ++d) sm_acc[warp][lane * DL + d] = acc[d];
+    for (int e = 0; e < W::EL; ++e) sm_acc[warp][lane * W::EL + e] = acc[e];
+  }
   __syncthreads();
-  if (threadIdx.x < D) {
-    float mt = ptt::NEG_INF;
+
+  // this block's share: the warps merged by the lse rule
+  const int d = threadIdx.x;
+  float mt = ptt::NEG_INF, lt = 0.f, at = 0.f;
+  if (d < D) {
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) mt = fmaxf(mt, sm_m[w]);
-    float lt = 0.f, at = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
       const float f = expf(sm_m[w] - mt);
       lt += sm_l[w] * f;
-      at += sm_acc[w][threadIdx.x] * f;
+      at += sm_acc[w][d] * f;
     }
+  }
+  if (split) {
+    // every rank's share goes to rank 0's shared memory, which merges them
+    // in rank order, as the warps were merged
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster_wait();  // every block of the cluster has started
+    float* dst = cluster.map_shared_rank(&part[0][0], 0) + rank * (D + 2);
+    if (d < D) dst[d] = at;
+    if (d == 0) {
+      dst[D] = mt;
+      dst[D + 1] = lt;
+    }
+    cluster_arrive_release();
+    cluster_wait();  // every share has landed
+    if (rank == 0 && d < D) {
+      mt = ptt::NEG_INF;
+      for (int r = 0; r < C; ++r) mt = fmaxf(mt, part[r][D]);
+      lt = 0.f;
+      at = 0.f;
+      for (int r = 0; r < C; ++r) {
+        const float f = expf(part[r][D] - mt);
+        lt += part[r][D + 1] * f;
+        at += part[r][d] * f;
+      }
+    }
+  }
+  if (rank == 0 && d < D) {
     const float l_safe = lt == 0.f ? 1.f : lt;  // no visible column -> zeros
-    ptt::store(out + (static_cast<int64_t>(b) * s + j) * row + h * D +
-                   threadIdx.x,
+    ptt::store(out + (static_cast<int64_t>(b) * s + j) * row + h * D + d,
                at / l_safe);
   }
 }
@@ -171,15 +329,53 @@ struct Args {
   float scale;
 };
 
+// How many blocks of a cluster split one (row, head, slot): the largest
+// power of two up to 8 with which the whole grid is resident at once (one
+// wave: SMs x this kernel's blocks per SM, from the occupancy calculator,
+// read once) and each rank keeps at least MIN_SHARE of the table's M * BS
+// columns. Shapes and the card only, never positions: no host sync, and
+// the launch keeps one shape for a fixed-shape step.
+template <typename T, typename P, int D>
+int cluster_size(int blocks, int M, int BS) {
+  static int resident = 0;
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, paged_attention_kernel<T, P, D>, THREADS, 0);
+    resident = max(1, sms * per_sm);
+  }
+  int c = 1;
+  while (c < MAX_CLUSTER && c * MIN_SHARE < M * BS &&
+         2 * c * blocks <= resident)
+    c *= 2;
+  return c;
+}
+
 template <typename T, typename P, int D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid(a.s, a.H, a.B);
-  paged_attention_kernel<T, P, D><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const P*>(a.k_pool),
-      static_cast<const P*>(a.v_pool), static_cast<const float*>(a.k_scale),
+  const int C = cluster_size<T, P, D>(a.B * a.s * a.H, a.M, a.BS);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.s * C, a.H, a.B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, paged_attention_kernel<T, P, D>, static_cast<const T*>(a.q),
+      static_cast<const P*>(a.k_pool), static_cast<const P*>(a.v_pool),
+      static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.table),
       static_cast<const int*>(a.positions), static_cast<T*>(a.out), a.s, a.H,
-      a.NB, a.M, a.BS, a.scale);
+      a.NB, a.M, a.BS, a.scale, C);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -237,4 +433,31 @@ extern "C" int paged_attention_int8(const void* q, const void* k_pool,
   const Args a{q, k_pool, v_pool, k_scale, v_scale, block_table, positions,
                out, B, s, H, num_blocks, M, block_size, scale};
   return run(true, dtype, D, a, stream);
+}
+
+// The cluster size that paged_attention (quantized = 0) or
+// paged_attention_int8 (quantized = 1) launches with at these shapes, for
+// reports; -1 for a dtype or head dim the kernel is not built for.
+extern "C" int paged_attention_cluster_size(int B, int s, int H, int D,
+                                            int M, int block_size, int dtype,
+                                            int quantized) {
+  const int blocks = B * s * H;
+  auto pick = [&](auto t, auto p) -> int {
+    using T = decltype(t);
+    using P = decltype(p);
+    switch (D) {
+      case 32: return cluster_size<T, P, 32>(blocks, M, block_size);
+      case 64: return cluster_size<T, P, 64>(blocks, M, block_size);
+      case 128: return cluster_size<T, P, 128>(blocks, M, block_size);
+      default: return -1;
+    }
+  };
+  if (dtype == ptt::DTYPE_F32)
+    return quantized ? pick(float{}, int8_t{}) : pick(float{}, float{});
+  if (dtype == ptt::DTYPE_BF16)
+    return quantized ? pick(__nv_bfloat16{}, int8_t{})
+                     : pick(__nv_bfloat16{}, __nv_bfloat16{});
+  if (dtype == ptt::DTYPE_F16)
+    return quantized ? pick(__half{}, int8_t{}) : pick(__half{}, __half{});
+  return -1;
 }

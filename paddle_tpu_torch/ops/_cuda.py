@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -105,18 +105,23 @@ def build_all(sources: Sequence[str] = KERNEL_SOURCES) -> Dict[str, dict]:
 
 class CudaKernel:
     """One exported C function of one kernel library, loaded at first
-    launch. ``launches`` counts the launches that returned no error."""
+    launch. ``launches`` counts the launches that returned no error.
+    ``library``: a library built elsewhere (another checkout's source, with
+    the same C interface) to load in place of building ``source``."""
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 library: Optional[str] = None):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.library = library
         self.launches = 0
         self._fn = None
         self._lib = None
 
     def _load(self):
-        lib = ctypes.CDLL(build_all([self.source])[self.source]["library"])
+        lib = ctypes.CDLL(self.library or build_all([self.source])
+                          [self.source]["library"])
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int

@@ -425,9 +425,9 @@ def probe_dropout_masks(B: int, H: int, S: int, dropout_p: float, seed: int,
     """Read back the keep mask that each of the three flash functions
     applies, as [B, H, S, S] bools keyed "fwd", "dkv" and "dq" (on CUDA
     the kernels', on the CPU the plain versions'), from calls in ``dtype``
-    (on CUDA, bf16 / f16 take the tensor-core forward and dK/dV kernels,
-    f32 the CUDA-core ones) whose inputs make every score 0 and route one
-    column or row of the mask into each output element (64 at a time):
+    (on CUDA, bf16 / f16 take the tensor-core kernels, f32 the CUDA-core
+    ones) whose inputs make every score 0 and route one column or row of
+    the mask into each output element (64 at a time):
 
     - fwd: v one-hot over keys [c0, c0 + 64), other keys masked by
       kv_bias, so out[b, row, h, d] = keep(row, c0 + d) / (64 (1 - p));

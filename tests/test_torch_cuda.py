@@ -12,9 +12,9 @@ order (1e-5); bf16 outputs may differ by one bf16 rounding step (2^-6 for
 outputs by one f16 step (2^-9 for |x| < 4, so 2e-3); lse is f32 on both
 sides (1e-4). Gradients: f32 1e-4 (three products deep, each summed in
 another order), bf16 one bf16 step of the value (rtol 2^-7) plus 1.6e-2,
-f16 one f16 step (rtol 2^-10) plus 4e-3. The bf16 / f16 forward and
-dK/dV kernels run on the tensor cores and also round p (and dS) to the
-input type before their second product, half a step of a value below 1
+f16 one f16 step (rtol 2^-10) plus 4e-3. The bf16 / f16 forward,
+dK/dV and dQ kernels run on the tensor cores and also round p (and dS) to
+the input type before their second product, half a step of a value below 1
 spread over the row's sum, inside the same tolerances. Dropout masks are
 integer hashes: bit-identical. The int8 paged branch dequantizes the same int8
 payloads and f32 scales on both sides, so it takes the fp tolerances of
@@ -72,21 +72,37 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, atol, S, causal,
         assert bool((out[1] == 0).all())
 
 
+# (D, BS, M): short tables, whose walk the kernel splits over 1, 2 and 4
+# blocks of a cluster, and long ones (128 pages of 16 tokens) split over 8
+PAGED_SHAPES = [(32, 4, 8), (64, 16, 8), (128, 32, 8),
+                (32, 16, 128), (64, 16, 128), (128, 16, 128)]
+
+
+def _paged_positions(M, BS, s):
+    """Short tables: row 0 overruns the table, row 2 ends in a null-block
+    tail; long: rows near 2,000 and ~1,000 tokens and one of 18, whose
+    walk leaves most cluster ranks without a visible token. The last query
+    of row 3 has pos = -1 and sees nothing: zeros."""
+    start = ([M * BS - 2, 3 * BS + 1, 2 * BS, 0] if M == 8
+             else [1990, 1003, 17, 0])
+    pos = (np.array(start)[:, None] + np.arange(s)[None, :]).astype(np.int32)
+    pos[3, -1] = -1
+    return pos
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", TOLS)
 @pytest.mark.parametrize("s", [1, 4])
-@pytest.mark.parametrize("D,BS", [(32, 4), (64, 16), (128, 32)])
-def test_paged_kernel_matches_plain(cuda_device, dtype, atol, s, D, BS):
-    rng = np.random.default_rng(s + D)
-    B, H, NB, M = 4, 4, 40, 8
+@pytest.mark.parametrize("D,BS,M", PAGED_SHAPES)
+def test_paged_kernel_matches_plain(cuda_device, dtype, atol, s, D, BS, M):
+    rng = np.random.default_rng(s + D if M == 8 else 1000 + s + D)
+    B, H, NB = 4, 4, 40
     q = rng.standard_normal((B, s, H, D)).astype(np.float32)
     kp = rng.standard_normal((NB, BS, H, D)).astype(np.float32)
     vp = rng.standard_normal((NB, BS, H, D)).astype(np.float32)
     table = rng.integers(1, NB, (B, M)).astype(np.int32)
     table[2, 5:] = 0                           # null-block tail
-    start = np.array([M * BS - 2, 3 * BS + 1, 2 * BS, 0])  # row 0 overruns
-    pos = (start[:, None] + np.arange(s)[None, :]).astype(np.int32)
-    pos[3, -1] = -1                            # sees nothing: zeros
+    pos = _paged_positions(M, BS, s)
     args = [torch.from_numpy(a).to(cuda_device, dtype) for a in (q, kp, vp)]
     table_t = torch.from_numpy(table).to(cuda_device)
     pos_t = torch.from_numpy(pos).to(cuda_device)
@@ -118,13 +134,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", TOLS)
 @pytest.mark.parametrize("s", [1, 4])
-@pytest.mark.parametrize("D,BS", [(32, 4), (64, 16), (128, 32)])
-def test_int8_paged_kernel_matches_plain(cuda_device, dtype, atol, s, D, BS):
+@pytest.mark.parametrize("D,BS,M", PAGED_SHAPES)
+def test_int8_paged_kernel_matches_plain(cuda_device, dtype, atol, s, D, BS,
+                                         M):
     """The int8 branch: pools quantized per row (absmax over D) with f32
-    scales; a row that overruns the table, a null-block tail, a pos = -1
-    row that must come out as zeros."""
-    rng = np.random.default_rng(100 + s + D)
-    B, H, NB, M = 4, 4, 40, 8
+    scales; the positions of `_paged_positions`, a null-block tail, a
+    pos = -1 row that must come out as zeros."""
+    rng = np.random.default_rng(100 + s + D if M == 8 else 1100 + s + D)
+    B, H, NB = 4, 4, 40
     q = torch.from_numpy(rng.standard_normal((B, s, H, D)).astype(
         np.float32)).to(cuda_device, dtype)
     kq, vq = (tkv.quantize_pool(torch.from_numpy(rng.standard_normal(
@@ -132,9 +149,7 @@ def test_int8_paged_kernel_matches_plain(cuda_device, dtype, atol, s, D, BS):
         for _ in range(2))
     table = rng.integers(1, NB, (B, M)).astype(np.int32)
     table[2, 5:] = 0
-    start = np.array([M * BS - 2, 3 * BS + 1, 2 * BS, 0])
-    pos = (start[:, None] + np.arange(s)[None, :]).astype(np.int32)
-    pos[3, -1] = -1
+    pos = _paged_positions(M, BS, s)
     args = (q, kq.data, vq.data, torch.from_numpy(table).to(cuda_device),
             torch.from_numpy(pos).to(cuda_device))
     kw = dict(block_size=BS, k_scale=kq.scale, v_scale=vq.scale)
@@ -270,7 +285,7 @@ def test_flash_forward_and_backward_kernels_match_plain(
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_draw_the_plain_versions_dropout_masks(cuda_device, dtype):
     """f32 reads the CUDA-core kernels' masks, bf16 the tensor-core
-    forward's and dK/dV's (dQ's kernel is one design for every type)."""
+    ones'."""
     masks = tfa.probe_dropout_masks(2, 3, 320, 0.1, -2**31, cuda_device,
                                     dtype)
     want = tfa._keep_bhqk(-2**31, 0.1, 2, 3, 320, 320, cuda_device)
